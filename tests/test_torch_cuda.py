@@ -1,0 +1,67 @@
+"""walt_tpu_torch on an NVIDIA GPU: the CUDA kernel and the device pipeline.
+
+Every test here needs a card (marker ``cuda``) and skips without one.  The
+file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest`` skips tests/conftest.py, which pins JAX to the CPU.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import verify_inputs
+from walt_tpu_torch.ops import verify
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,W", [(196_608, 7), (1001, 7), (5003, 1),
+                                 (5003, 3), (5003, 13), (4097, 63)])
+def test_verify_kernel_matches_reference(cuda_device, M, W):
+    rng = np.random.default_rng(9 + M + W)
+    args = verify_inputs(rng, M, W, 1 << 16, cuda_device)
+    before = verify.launches
+    mm_k, win_k = verify.verify_windows(*args, W)
+    torch.cuda.synchronize(cuda_device)
+    assert verify.launches == before + 1
+    mm_r, win_r = verify.verify_windows_reference(*args, W)
+    assert torch.equal(mm_k, mm_r)
+    assert torch.equal(win_k, win_r)
+
+
+@pytest.mark.cuda
+def test_map_single_end_on_card_vs_native(cuda_device):
+    """The whole SE step on the card agrees with the native exact replay on
+    every read the device resolved, and went through the kernel."""
+    from walt_tpu import native
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.index.build import build_table
+    from walt_tpu.synth import make_genome_repetitive, sample_reads
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [build_table(genome, c, pattern, verbose=False)
+              for c in ("CT00", "CT01")]
+    codes, lens, _ = sample_reads(genome, 5000, 100, seed=23)
+    backend = TorchBackend(device=cuda_device, small_chunk=1024)
+    before = verify.launches
+    pos, times, minus, mm, fb = backend.map_single_end(
+        codes, lens, tables, 5000, 6, pattern)
+    assert verify.launches > before
+    ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
+    if ref is None:
+        pytest.skip("native library unavailable")
+    ok = ~fb
+    assert ok.mean() > 0.75
+    for got, want in zip((pos, times, minus, mm), ref):
+        np.testing.assert_array_equal(got[ok], want[ok])

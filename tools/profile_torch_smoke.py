@@ -1,0 +1,164 @@
+"""Stage times and a device profile of walt_tpu_torch's single-end path.
+
+Runs on one CUDA GPU, on the data ``chip_smoke.py`` builds (a 128 Mbp
+repetitive genome, its index and 1,000,000 x 100 bp reads, made once under
+``build/smoke_data/``), and prints:
+
+- FASTQ parse + 2-bit pack of all reads (host);
+- table setup of the '+' strand table: host prep, upload, uniq run index,
+  key16 and u32 word-0 builds (each fenced by a device synchronize);
+- ``TorchBackend.map_single_end`` on all reads: the first call (which
+  builds both tables) and three steady calls with the tables resident;
+- one steady call under ``torch.profiler``: wall, device busy time (the
+  union of the device events' intervals), the idle share of the wall, and
+  device time by kernel name (the full table goes to ``OUT/``);
+- the CLI end to end with one batch (the default ``-N``) and with 250,000-read
+  batches, twice each in turns.
+
+Usage, from the repository root:
+
+    python tools/profile_torch_smoke.py [OUT]
+
+``OUT`` (where the full per-kernel table goes) defaults to
+``build/profile/``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(out_dir: str) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.host.fastq import FgetsLines, load_batch
+    from walt_tpu.index import io_walt
+    from walt_tpu_torch import cli
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.ops import device_index as tdi
+
+    os.makedirs(out_dir, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    print("card:", cs.card_line(), flush=True)
+    idx, fq = cs.build_data(cs.DATA, cs.GENOME_BASES, cs.N_READS,
+                            cs.READ_LEN)
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(idx)
+    tables = [io_walt.read_table_cached(idx + s, gm)
+              for s in ("_CT00", "_CT01")]
+    t = time.perf_counter()
+    lines = FgetsLines(fq)
+    codes, lens = load_batch(lines, 1 << 40).packed()
+    lines.close()
+    print(f"fastq parse+pack {codes.shape[0]} reads: "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+
+    def sync_t():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    g, ht = tables[0]
+    t0 = sync_t()
+    dt = tdi.build_device_table(g, ht, pattern)
+    t1 = sync_t()
+    d = tdi.place_table(dt, dev)
+    t2 = sync_t()
+    u = tdi.build_uniq_device(d["pseq"], d["index"], d["counter"], pattern)
+    t3 = sync_t()
+    k16 = tdi.build_key16_device(d["pseq"], d["index"], pattern)
+    t4 = sync_t()
+    kw = tdi.build_key_words_device(d["pseq"], d["index"], pattern,
+                                    n_key_words=1)
+    t5 = sync_t()
+    print(f"table setup (one strand, {ht.index.shape[0]} entries): host prep "
+          f"{t1 - t0:.3f} s, upload {t2 - t1:.3f} s, uniq {t3 - t2:.3f} s "
+          f"(U={u[0].shape[0]}, bits {u[3]}), key16 {t4 - t3:.3f} s, "
+          f"word0 {t5 - t4:.3f} s", flush=True)
+    del d, u, k16, kw
+    torch.cuda.empty_cache()
+
+    be = TorchBackend(device=dev)
+    be.table_budget_hint = 2
+    t = time.perf_counter()
+    be.map_single_end(codes, lens, tables, 5000, 6, pattern)
+    print(f"map_single_end first call (builds tables): "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    for rep in range(3):
+        be.reset_adaptive()
+        t = time.perf_counter()
+        r = be.map_single_end(codes, lens, tables, 5000, 6, pattern)
+        print(f"map_single_end steady {rep}: {time.perf_counter() - t:.3f} "
+              f"s, fallback {r[4].mean():.4f}", flush=True)
+
+    be.reset_adaptive()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        be.map_single_end(codes, lens, tables, 5000, 6, pattern)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    iv = [(e.time_range.start, e.time_range.end) for e in evs]
+    busy = busy_us(iv)
+    span = (max(e for _, e in iv) - min(s for s, _ in iv)) if iv else 0
+    by_name = {}
+    for e in evs:
+        k = e.name[:80]
+        n, tt = by_name.get(k, (0, 0))
+        by_name[k] = (n + 1, tt + e.time_range.elapsed_us())
+    tot = sum(v[1] for v in by_name.values()) or 1
+    print(f"profiled steady map_single_end: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms (union of device event intervals), "
+          f"first-to-last event span {span / 1e3:.1f} ms, idle share of wall "
+          f"{1 - busy / 1e6 / wall:.3f}, {len(evs)} device events",
+          flush=True)
+    rows = [f"{tt / 1e3:9.2f} ms {100 * tt / tot:5.1f}% x{n:5d}  {k}"
+            for k, (n, tt) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][1])]
+    print("\n".join(rows[:25]), flush=True)
+    with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    be.free_tables()
+
+    # end to end through the CLI: one batch (the default -N) against
+    # pipelined 250k-read batches, in turns
+    for n_batch in (1_000_000, 250_000, 1_000_000, 250_000):
+        out = os.path.join(cs.DATA, f"cli_{n_batch}.mr")
+        t = time.perf_counter()
+        if cli.main(["-i", idx, "-r", fq, "-o", out, "-N",
+                     str(n_batch)]) != 0:
+            raise AssertionError(f"the CLI run with -N {n_batch} failed")
+        w = time.perf_counter() - t
+        print(f"CLI -N {n_batch}: {w:.3f} s wall, "
+              f"{codes.shape[0] / w:.1f} reads/s", flush=True)
+    print("card:", cs.card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1
+                  else os.path.join(REPO, "build", "profile")))

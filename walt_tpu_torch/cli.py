@@ -1,0 +1,125 @@
+"""Command-line mapper of the port: ``python -m walt_tpu_torch.cli``.
+
+The flag surface is ``walt_tpu.cli``'s (WALT's flags and validation,
+walt.cpp:130-246), reused by import, with ``--backend {torch,numpy}`` in
+place of ``{jax,numpy}`` and ``--device {cuda,cpu}``.  Single-end runs go
+through ``walt_tpu.core.single_end.process_single_end``.  Paired-end input,
+``--tp``, ``--multihost`` and ``WALTX_PROFILE_DIR`` (walt_tpu's JAX profiler
+hook) are not ported yet and are rejected.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from walt_tpu.cli import (
+    FASTQ_SUFFIXES, MAX_BATCH, _about_or_help, _apply_config_file,
+    _split_filenames, _validate_index, build_map_parser,
+)
+
+
+def build_parser():
+    # "resolve" lets the --backend below replace walt_tpu's
+    p = argparse.ArgumentParser(
+        prog="python -m walt_tpu_torch.cli",
+        description="map Illumina BS-seq reads (WALT-compatible, "
+                    "PyTorch/CUDA)",
+        parents=[build_map_parser()], conflict_handler="resolve",
+        add_help=False,
+    )
+    p.add_argument("--backend", default="torch", choices=("torch", "numpy"),
+                   help="candidate enumeration backend (torch=device "
+                        "pipeline, numpy=host oracle)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="torch device of the torch backend")
+    return p
+
+
+def main(argv=None) -> int:
+    argv = _apply_config_file(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "map":
+        argv = argv[1:]
+    parser = build_parser()
+    if _about_or_help(argv, parser, "waltx", "map Illumina BS-seq reads"):
+        return 0
+    args = parser.parse_args(argv)
+    _validate_index(args.index)
+
+    if args.reads1 or args.reads2:
+        raise SystemExit("paired-end mapping is not yet ported to "
+                         "walt_tpu_torch")
+    if args.tp != 1:
+        raise SystemExit("--tp is not yet ported to walt_tpu_torch")
+    if args.multihost:
+        raise SystemExit("--multihost is not yet ported to walt_tpu_torch")
+    if os.environ.get("WALTX_PROFILE_DIR"):
+        # the reused process_single_end would start walt_tpu's JAX profiler
+        raise SystemExit("WALTX_PROFILE_DIR is walt_tpu's JAX profiler hook; "
+                         "unset it for walt_tpu_torch")
+    se_files = _split_filenames(args.reads)
+    for f in se_files:
+        if not f.endswith(FASTQ_SUFFIXES):
+            raise SystemExit(f"read file invalid suffix: {f}")
+    outputs = _split_filenames(args.output)
+    if len(outputs) != 1 and len(outputs) != len(se_files):
+        raise SystemExit(f"wrong number of output files: {args.output}")
+    if len(outputs) == 1:
+        outputs = outputs * len(se_files)
+    if args.batch > MAX_BATCH:
+        raise SystemExit(f"batch size may not exceed {MAX_BATCH}")
+    if not (2 <= args.top_k <= 300):
+        raise SystemExit("paired-end candidates must be in [2, 300]")
+
+    from walt_tpu_torch.core.backends import get_backend
+
+    if args.backend == "torch":
+        import torch
+
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device is available")
+        backend = get_backend("torch", device=args.device)
+    else:
+        backend = get_backend("numpy")
+
+    # clear output files so later appends make sense (walt.cpp:229-233);
+    # under --resume process_single_end restores/truncates from its
+    # checkpoints
+    shared_output = len(set(outputs)) != len(outputs)
+    if not args.resume:
+        for out in outputs:
+            open(out, "w").close()
+            open(out + ".mapstats", "w").close()
+    elif shared_output:
+        import glob
+
+        for out in set(outputs):
+            if not glob.glob(glob.escape(out) + ".waltx_ckpt*"):
+                open(out, "w").close()
+                open(out + ".mapstats", "w").close()
+    if args.threads > 1:
+        from walt_tpu.host import replay
+
+        replay.set_host_threads(args.threads)
+
+    from walt_tpu.core.single_end import process_single_end
+
+    for oi, (f, out) in enumerate(zip(se_files, outputs)):
+        # per-file reset: file N's phase schedule must not depend on N-1
+        if hasattr(backend, "reset_adaptive"):
+            backend.reset_adaptive()
+        process_single_end(
+            args.index, f, out, batch_size=args.batch,
+            max_mismatches=args.mismatch, b=args.bucket, adaptor=args.adaptor,
+            ag_wildcard=args.ag_wildcard or args.pbat,
+            ambiguous=args.ambiguous, unmapped=args.unmapped, sam=args.sam,
+            backend=backend, pattern_name=args.seed_pattern,
+            verbose=args.verbose, resume=args.resume,
+            ckpt_tag=f".run{oi}" if (args.resume and shared_output) else "",
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,523 @@
+"""PyTorch mapping backend (single device).
+
+Port of ``walt_tpu/core/jax_backend.py`` without the mesh: prepares
+device-resident tables (packed genome words + an accelerating key
+structure), packs read batches to 2-bit words on the host, tiles them into a
+short ladder of chunk shapes, launches every chunk and then fetches the
+results, so host-to-device copies and compute overlap.
+
+For single-end mapping the whole BestMatch fold runs on the device
+(``ops/se_fold``) and only (B, 3) results come back.  Reads whose candidates
+do not fit the fixed shapes (or touch flagged buckets) are flagged for the
+exact host path -- output is identical either way.
+
+Every tensor is created on the backend's explicit ``device``:
+``process_single_end`` calls :meth:`TorchBackend.map_single_end` from a
+worker thread, and the current CUDA device is per thread.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from walt_tpu.constants import SeedPattern
+from walt_tpu.core import refmap
+from walt_tpu.core.errors import HbmBudgetError
+from walt_tpu.genome import Genome
+from walt_tpu.index.build import HashTable
+from walt_tpu_torch.ops import device_index, packing, pipeline, se_fold
+
+
+#: padded read length granularity: one packed 16-base word
+LEN_PAD = 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class TorchBackend:
+    name = "torch"
+
+    #: bytes reserved for the mapping working set (read chunks, worklists,
+    #: gather windows, allocator fragmentation) on top of the resident
+    #: tables.  Calibrated on a 16 GB TPU v5e for the JAX package; not yet
+    #: measured on an NVIDIA card.
+    HBM_RESERVE = 4352 << 20
+
+    def __init__(self, device="cuda", chunk: int = 131072,
+                 small_chunk: int = 2048,
+                 verify_slab: int = pipeline.VERIFY_SLAB,
+                 cand_slab: int = pipeline.CAND_SLAB):
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBackend: device 'cuda' requested but no CUDA "
+                    "device is available")
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        elif device.type != "cpu":
+            raise ValueError(f"TorchBackend: unsupported device {device}")
+        self.device = device
+        self.chunk = chunk
+        self.small_chunk = small_chunk
+        self.verify_slab = verify_slab
+        self.cand_slab = cand_slab
+        self._tables = {}
+        #: table keys whose build already failed the memory budget; the
+        #: failure is deterministic, so later batches short-circuit.  Values
+        #: pin the (genome, table) objects so the id()-based key stays valid.
+        self._failed_tables = {}
+        #: how many tables the current run keeps resident (process_single_end
+        #: sets 2); the budget is split evenly across tables not yet built
+        self.table_budget_hint = 0
+        self.fallback_reads = 0
+        self.total_reads = 0
+        #: the key-structure rung each built table took ("uniq", "key16",
+        #: "u32 word0" or "3-word"), by strand, for reports
+        self.rungs = {}
+        self.reset_adaptive()
+
+    def reset_adaptive(self):
+        """Reset the per-workload throughput heuristics (between files, so
+        file N's phase schedule never depends on file N-1's reads)."""
+        # measured fraction of reads whose best hit resolves at seed 0 with
+        # 0 mismatches (the early exit, mapping.cpp:248-263); decides
+        # whether a dedicated seed-0 phase pays for itself
+        self._seed0_rate = None
+        # tier-1 worklist slots per read (the JAX package's tuned value);
+        # widened for workloads that spill
+        self._wl1 = 1.5
+
+    # ---- tables ----------------------------------------------------------
+    def _device_table(self, genome: Genome, table: HashTable,
+                      pattern: SeedPattern, n_key_words: int = 1,
+                      wide_kw: bool = False):
+        """Cached resident table.  ``n_key_words``: packed key words the run
+        needs (3 for -b below the verify slabs; an existing 1-word table is
+        then rebuilt).  ``wide_kw``: prefer the u32 word-0 rung over key16
+        when uniq does not fit."""
+        # the entry holds strong references to (genome, table): the id()
+        # key is only unambiguous while those objects are alive
+        key = (id(genome), id(table), pattern.name)
+        got = self._tables.get(key)
+        if got is not None:
+            kw_arr = got[1]["key_words"]
+            stored = kw_arr.shape[-1] if kw_arr.dim() == 2 else 1
+            if stored < n_key_words:
+                del self._tables[key]  # rebuild with the deeper key words
+        if key not in self._tables:
+            if key in self._failed_tables:
+                raise HbmBudgetError(
+                    "table build already failed the memory budget this run"
+                )
+            try:
+                dt, dev = self._build_single_device_table(
+                    genome, table, pattern, n_key_words, wide_kw=wide_kw
+                )
+            except HbmBudgetError:
+                self._failed_tables[key] = (genome, table)
+                raise
+            self._tables[key] = (dt, dev, genome, table)
+        return self._tables[key][:2]
+
+    def free_tables(self):
+        """Drop every cached device table (and its memory) explicitly."""
+        self._tables.clear()
+        self._failed_tables.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _hbm_budget(self) -> int | None:
+        """Device memory in bytes, or None when unconstrained (CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return int(torch.cuda.mem_get_info(self.device)[1])
+
+    def _resident_bytes(self) -> int:
+        return sum(_nbytes(v) for entry in self._tables.values()
+                   for v in entry[1].values())
+
+    def _build_single_device_table(self, genome: Genome, table: HashTable,
+                                   pattern: SeedPattern, n_key_words: int,
+                                   wide_kw: bool = False):
+        """Place one table within the memory budget, degrading gracefully.
+
+        Ladder: full table + uniq run index -> full table + one key-word
+        rung (key16 or u32 word 0; 3 words for exact_b runs) ->
+        HbmBudgetError (the batch is mapped on the exact host path).
+        ``WALTX_KEY_RUNG`` (uniq|word0|key16) pins the ladder to one rung.
+        """
+        pipeline.check_entry_limit(
+            int(table.index.shape[0]), "single-device table"
+        )
+        budget = self._hbm_budget()
+        free = (None if budget is None
+                else budget - self.HBM_RESERVE - self._resident_bytes())
+        if free is not None and self.table_budget_hint:
+            remaining = max(1, self.table_budget_hint - len(self._tables))
+            free = free // remaining
+        # the base footprint is computable from the raw table: check it
+        # before the host prep so an over-budget table costs nothing
+        nb1 = int(table.counter.shape[0])
+        base = (len(genome.seq) // 4 + 268 + 4 * nb1 + table.index.nbytes
+                + genome.start_index.nbytes + (nb1 - 1))
+        if free is not None and base > free:
+            raise HbmBudgetError(
+                f"table needs {base / 2**30:.2f} GB but only "
+                f"{max(free, 0) / 2**30:.2f} GB of the "
+                f"{budget / 2**30:.0f} GB device budget is free"
+            )
+        dt = device_index.build_device_table(genome, table, pattern)
+        base = (dt.pseq.nbytes + dt.counter.nbytes + dt.index.nbytes
+                + dt.start_index.nbytes + dt.bucket_flagged.nbytes)
+        try:
+            dev = device_index.place_table(dt, self.device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise HbmBudgetError(f"table upload: {e}") from e
+        n = int(dt.index.shape[0])
+        uniq_max = None if free is None else free - base - dt.counter.nbytes
+        rung = os.environ.get("WALTX_KEY_RUNG", "")
+        # skip the uniq build outright when even an optimistic run count
+        # (U = 0.875n) cannot fit
+        skip_uniq = ((uniq_max is not None and 7 * n > uniq_max)
+                     or rung in ("word0", "key16"))
+        uniq = None
+        if not skip_uniq:
+            try:
+                uniq = device_index.build_uniq_device(
+                    dev["pseq"], dev["index"], dev["counter"], pattern,
+                    max_bytes=uniq_max,
+                )
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+        uniq_bytes = 0
+        label = "uniq"
+        if uniq is not None:
+            (dev["uniq_words"], dev["uniq_off"], dev["uniq_counter"],
+             dt.uniq_bits) = uniq
+            uniq_bytes = sum(_nbytes(a) for a in uniq[:3])
+        else:
+            dt.uniq_bits = 0
+            z = torch.zeros
+            dev["uniq_words"] = z(1, dtype=torch.int32, device=self.device)
+            dev["uniq_off"] = z(2, dtype=torch.int32, device=self.device)
+            dev["uniq_counter"] = z(2, dtype=torch.int32, device=self.device)
+        need_kw = max(n_key_words, 0 if dt.uniq_bits else 1)
+        if need_kw >= 3 or (need_kw and not dt.uniq_bits):
+            # One stored key word for a uniq-less fast-path table: the full
+            # u32 word 0 (4 bytes/entry, refines to the exact word-0 run) or
+            # its 16-bit prefix (2 bytes/entry, coarser run groups, more
+            # host fallback).  The JAX package measured key16 + concurrent
+            # native host replay faster end to end on its TPU, so key16
+            # comes first when the native library is present and the caller
+            # does not ask for the wide word; this order is not yet
+            # measured on an NVIDIA card.
+            from walt_tpu import native as _native
+
+            k16_first = _native.get_lib() is not None and not wide_kw
+            kw_modes = ([(need_kw, 4 * need_kw * n, "3-word")]
+                        if need_kw >= 3 else
+                        [(0, 2 * n, "key16"), (1, 4 * n, "u32 word0")]
+                        if k16_first else
+                        [(1, 4 * n, "u32 word0"), (0, 2 * n, "key16")])
+            if need_kw < 3 and rung == "word0":
+                kw_modes = [m for m in kw_modes if m[0] == 1]
+            elif need_kw < 3 and rung == "key16":
+                kw_modes = [m for m in kw_modes if m[0] == 0]
+            chosen = next((m for m in kw_modes
+                           if free is None or base + uniq_bytes + m[1] <= free),
+                          None)
+            if chosen is None:
+                raise HbmBudgetError(
+                    f"key words need {kw_modes[-1][1] / 2**30:.2f} GB on top "
+                    f"of {(base + uniq_bytes) / 2**30:.2f} GB of tables; "
+                    f"budget is {budget / 2**30:.0f} GB"
+                )
+            mode, _, label = chosen
+
+            def build_kw(m):
+                if m >= 1:
+                    return device_index.build_key_words_device(
+                        dev["pseq"], dev["index"], pattern, n_key_words=m)
+                return device_index.build_key16_device(
+                    dev["pseq"], dev["index"], pattern)
+
+            try:
+                dev["key_words"] = build_kw(mode)
+            except torch.cuda.OutOfMemoryError as e:
+                # the budget passed but the real allocator did not: degrade
+                # to key16 once, after releasing the failed attempt's blocks
+                torch.cuda.empty_cache()
+                if mode < 1:
+                    raise HbmBudgetError(f"key16 build: {e}") from e
+                try:
+                    dev["key_words"] = build_kw(0)
+                    label = "key16"
+                except torch.cuda.OutOfMemoryError as e2:
+                    raise HbmBudgetError(
+                        "key-word build exhausted device memory on every "
+                        "rung; mapping on the exact host path") from e2
+        else:
+            dev["key_words"] = torch.zeros((1, 1), dtype=torch.int32,
+                                           device=self.device)
+        self.rungs[genome.strand] = label
+        return dt, dev
+
+    # ---- batching --------------------------------------------------------
+    @staticmethod
+    def _full_mask(lens_: np.ndarray, pattern: SeedPattern) -> bool:
+        """True when every mappable read in the slice compares a full first
+        packed key word (seed_len >= key_weight + 16)."""
+        ok = lens_ >= pattern.min_read_len
+        if not ok.any():
+            return True
+        sl = np.asarray(pattern.seed_len_for_len(lens_[ok]))
+        return bool(sl.min() >= pattern.key_weight + 16)
+
+    def _needed_key_words(self, b: int) -> int:
+        """1 word when no tier can take the exact_b path, else all 3."""
+        slabs = max(512, self.verify_slab, pipeline.VERIFY_SLAB_T1)
+        return 1 if b >= slabs else 3
+
+    def _chunks(self, codes: np.ndarray, lens: np.ndarray,
+                pattern: SeedPattern, chunk: int | None = None):
+        """Pack reads and lazily yield fixed-shape (preads, lens) chunks on
+        the device, from a short ladder of chunk shapes (small_chunk, x4
+        steps, chunk/2, chunk) so batch tails do not pay a full chunk; tiers
+        with a large verify slab pass an explicit small ``chunk``."""
+        n = codes.shape[0]
+        Lmax = _round_up(max(int(codes.shape[1]), pattern.min_read_len),
+                         LEN_PAD)
+        W = Lmax // 16
+        packed = packing.pack_codes_np(
+            np.pad(codes, ((0, 0), (0, Lmax - codes.shape[1])))
+        )
+        ladder = [self.small_chunk]
+        while ladder[-1] * 4 < self.chunk:
+            ladder.append(ladder[-1] * 4)
+        if self.chunk // 2 > ladder[-1]:
+            ladder.append(self.chunk // 2)
+        ladder.append(self.chunk)
+        a = 0
+        while a < n:
+            c = chunk if chunk is not None else next(
+                (s for s in ladder if n - a <= s), ladder[-1])
+            z = min(a + c, n)
+            pc = np.zeros((c, W), dtype=np.uint32)
+            pc[: z - a] = packed[a:z]
+            pl = np.zeros(c, dtype=np.int32)
+            pl[: z - a] = lens[a:z]
+            yield (a, z, packing.from_np(pc, self.device),
+                   torch.from_numpy(pl).to(self.device))
+            a = z
+
+    def _fetch(self, tensors):
+        """Copy device results to host numpy: start every copy, then one
+        synchronize."""
+        host = [t.to("cpu", non_blocking=True) for t in tensors]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return [h.numpy() for h in host]
+
+    # ---- single-end ------------------------------------------------------
+    def map_single_end(self, codes: np.ndarray, lens: np.ndarray, tables,
+                       b: int, max_mismatches: int, pattern: SeedPattern,
+                       ag_wildcard: bool = False):
+        """Full SE step on the device for both strand tables ('+' then '-').
+
+        ``tables``: [(genome, hash_table), (genome, hash_table)].
+        Returns (pos (n,) uint32, times (n,) int32, minus (n,) bool,
+        mismatch (n,) int32, fallback (n,) bool).  A device out-of-memory
+        error is raised as HbmBudgetError, which process_single_end answers by
+        mapping the batch on the exact host path.
+        """
+        try:
+            return self._map_single_end(codes, lens, tables, b,
+                                        max_mismatches, pattern, ag_wildcard)
+        except torch.cuda.OutOfMemoryError as e:
+            torch.cuda.empty_cache()
+            raise HbmBudgetError(f"device out of memory: {e}") from e
+
+    def _map_single_end(self, codes, lens, tables, b, max_mismatches,
+                        pattern, ag_wildcard):
+        n = codes.shape[0]
+        devs, bits, ubits = [], [], []
+        nkw = self._needed_key_words(b)
+        for g, ht in tables:
+            dt, dev = self._device_table(g, ht, pattern, nkw)
+            devs.append(dev)
+            bits.append(dt.max_bucket_bits)
+            ubits.append(dt.uniq_bits)
+
+        def run(codes_, lens_, seeds, slab, cand_slab=None, chunk=None,
+                wl_factor=pipeline.WL_FACTOR):
+            m = codes_.shape[0]
+            spans, results = [], []
+            for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
+                results.append(se_fold.map_single_end_device(
+                    pc, pl, b, max_mismatches, tuple(devs),
+                    pattern_name=pattern.name, ag_wildcard=ag_wildcard,
+                    search_bits=tuple(bits), verify_slab=slab,
+                    cand_slab=cand_slab or self.cand_slab, seeds=seeds,
+                    wl_factor=wl_factor, exact_b=b < slab,
+                    uniq_bits=tuple(ubits),
+                    full_mask=self._full_mask(lens_[a:z], pattern),
+                ))
+                spans.append((a, z))
+            out = [np.empty(m, t) for t in
+                   (np.uint32, np.int32, bool, np.int32, bool)]
+            for (a, z), r in zip(spans, self._fetch(results)):
+                for o, x in zip(out, se_fold.unpack_se_result(r[: z - a])):
+                    o[a:z] = x
+            return out
+
+        def merge(into, idx, vals):
+            for o, v in zip(into, vals):
+                o[idx] = v
+
+        # Phase A: seed 0 only, both strands.  A read whose best hit has 0
+        # mismatches is FINAL here: the early-exit gate (mapping.cpp:248-263)
+        # skips seeds 1..2 on both strand passes.  Whether the phase pays
+        # depends on the workload's error profile, so the observed resolve
+        # rate decides.
+        if self._seed0_rate is None or self._seed0_rate >= 0.5:
+            out = run(codes, lens, (0,), pipeline.VERIFY_SLAB_T1,
+                      wl_factor=self._wl1)
+            pos, times, minus, mm, fb = out
+            resolved = (mm == 0) & ~fb
+            rate = float(resolved.mean()) if n else 1.0
+            self._seed0_rate = rate if self._seed0_rate is None else (
+                0.5 * self._seed0_rate + 0.5 * rate
+            )
+            # Phase B: the full seed schedule for unresolved reads
+            todo = np.flatnonzero(~resolved)
+            if todo.size:
+                merge(out, todo,
+                      run(codes[todo], lens[todo], None,
+                          pipeline.VERIFY_SLAB_T1, wl_factor=self._wl1))
+        else:
+            out = run(codes, lens, None, pipeline.VERIFY_SLAB_T1,
+                      wl_factor=self._wl1)
+            pos, times, minus, mm, fb = out
+        if self._wl1 < pipeline.WL_FACTOR and n and fb.mean() > 0.05:
+            # dense-candidate workload: widen future batches' worklists
+            self._wl1 = pipeline.WL_FACTOR
+        # With the native exact enumerator every overflow read goes to the
+        # host replay, which process_single_end runs concurrently with the next
+        # batch's device work (the JAX package's single-device policy).  The
+        # device tiers below run only without the native library.
+        from walt_tpu import native as _native
+
+        if _native.get_lib() is None:
+            # Tier 2: larger verify slab for reads that overflowed tier 1;
+            # Tier 3: highly repetitive reads (runs up to 512); Tier 4: the
+            # deep-repeat tail (key16 run groups up to 4096).  Small chunks
+            # keep the padded worklists bounded.
+            for slab, cand, chunk in ((self.verify_slab, None, 8192),
+                                      (512, 512, 256), (4096, 512, 64)):
+                todo = np.flatnonzero(out[4])
+                if todo.size <= max(256, n // 128):
+                    break
+                merge(out, todo,
+                      run(codes[todo], lens[todo], None, slab,
+                          cand_slab=cand, chunk=chunk, wl_factor=3 * slab))
+        self.total_reads += n
+        self.fallback_reads += int(out[4].sum())
+        return out
+
+    # ---- per-strand candidate streams --------------------------------------
+    def map_strand_slabs(self, codes: np.ndarray, lens: np.ndarray,
+                         genome: Genome, table: HashTable, ag_wildcard: bool,
+                         b: int, max_mismatches: int, pattern: SeedPattern):
+        """Candidate slabs for a batch against one table, slab-tiered.
+
+        Returns (cand_seed (n,C) int8, cand_pos (n,C) uint32,
+        cand_mm (n,C) int32, cand_cnt (n,) int32, fallback (n,) bool).
+        """
+        n = codes.shape[0]
+        dt, dev = self._device_table(genome, table, pattern,
+                                     self._needed_key_words(b), wide_kw=True)
+        C = self.cand_slab
+
+        def run(codes_, lens_, slab, chunk=None,
+                wl_factor=pipeline.WL_FACTOR):
+            m = codes_.shape[0]
+            spans, results = [], []
+            for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
+                results.extend(pipeline.map_strand_core(
+                    pc, pl, b, max_mismatches, dev["pseq"], dev["counter"],
+                    dev["index"], dev["key_words"], dev["start_index"],
+                    dev["bucket_flagged"], pattern_name=pattern.name,
+                    ag_wildcard=ag_wildcard, search_bits=dt.max_bucket_bits,
+                    verify_slab=slab, cand_slab=C, wl_factor=wl_factor,
+                    exact_b=b < slab, uniq_words=dev["uniq_words"],
+                    uniq_off=dev["uniq_off"], uniq_counter=dev["uniq_counter"],
+                    uniq_bits=dt.uniq_bits,
+                    full_mask=self._full_mask(lens_[a:z], pattern),
+                ))
+                spans.append((a, z))
+            out = (
+                np.empty((m, C), dtype=np.int8),
+                np.empty((m, C), dtype=np.uint32),
+                np.empty((m, C), dtype=np.int32),
+                np.empty(m, dtype=np.int32),
+                np.empty(m, dtype=bool),
+            )
+            host = self._fetch(results)
+            for i, (a, z) in enumerate(spans):
+                for o, x in zip(out, host[5 * i: 5 * i + 5]):
+                    o[a:z] = x[: z - a]
+            return out
+
+        out = run(codes, lens, pipeline.VERIFY_SLAB_T1)
+        # chunks bounded so the tier worklists (wl_factor x chunk rows)
+        # stay small
+        for slab, chunk in ((self.verify_slab, 8192), (512, 256)):
+            todo = np.flatnonzero(out[4])
+            if not todo.size:
+                break
+            vals = run(codes[todo], lens[todo], slab, chunk,
+                       wl_factor=3 * slab)
+            for o, v in zip(out, vals):
+                o[todo] = v
+        self.total_reads += n
+        self.fallback_reads += int(out[4].sum())
+        return out
+
+    def map_strand(self, codes: np.ndarray, lens: np.ndarray, genome: Genome,
+                   table: HashTable, ag_wildcard: bool, b: int,
+                   max_mismatches: int, pattern: SeedPattern) -> list:
+        """Per-read ordered candidate lists (exact; slabs + host fallback)."""
+        n = codes.shape[0]
+        if n == 0:
+            return []
+        cand_seed, cand_pos, cand_mm, cand_cnt, fallback = self.map_strand_slabs(
+            codes, lens, genome, table, ag_wildcard, b, max_mismatches, pattern
+        )
+        out = []
+        seq_padded = None
+        for i in range(n):
+            if fallback[i]:
+                if seq_padded is None:
+                    seq_padded = refmap.padded_seq(genome, pattern)
+                out.append(list(refmap.enumerate_candidates(
+                    codes[i, : int(lens[i])], genome, table, ag_wildcard, b,
+                    max_mismatches, pattern, seq_padded=seq_padded,
+                )))
+            else:
+                c = int(cand_cnt[i])
+                out.append(list(zip(
+                    cand_seed[i, :c].tolist(),
+                    cand_pos[i, :c].tolist(),
+                    cand_mm[i, :c].tolist(),
+                )))
+        return out

@@ -1,0 +1,406 @@
+"""The device mapping pipeline: seed -> refine -> verify -> compact.
+
+Port of ``walt_tpu/ops/pipeline.py`` (``map_strand_core``, single device).
+One call maps a fixed-shape read batch against one table:
+
+1. seed hashing: the 12 cared bases per (read, shift) are extracted from the
+   2-bit-packed read words and packed to a bucket key (util.hpp:175-182);
+2. bucket refinement: a masked-prefix lower-bound binary search over packed
+   key words (or over the word-0 RUNS of the uniq index) finds where the
+   refined run starts (mapping.cpp:166-222);
+3. the -b cap on the refined count (mapping.cpp:275-277) and chromosome
+   boundary rejections (mapping.cpp:281-286);
+4. verification on a cross-read worklist of refined survivors through the
+   candidate-verify kernel (``ops/verify``), with the pattern-typo
+   corrections and the window cared check;
+5. ordered compaction of candidates with mismatch <= -m into a fixed slab,
+   preserving (seed asc, bucket position asc) examination order.
+
+A read whose run might extend past the slab, whose survivors spill the
+worklist, or that touches a flagged bucket raises ``fallback`` and is
+mapped by the exact host path.
+
+Integer conventions follow ``ops/packing``: resident tensors are int32 u32
+bit patterns; everything here computes in int64, masking back to 32 bits
+where the JAX code relies on u32 wraparound.  JAX's clamped gathers
+(``mode="clip"``) are explicit clamps, and its dropped scatters
+(``mode="drop"``) scatter into one spare slot that is sliced off.
+
+Not ported yet: ``key_base``/``tp_route`` (multi-GPU table sharding),
+``emit_wl`` (paired-end) and ``stage_out`` (the XLA stage profiler).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from walt_tpu.constants import get_pattern
+from walt_tpu_torch.ops import packing, verify
+from walt_tpu_torch.ops.packing import MASK32, u32
+
+#: tier-1 verify slab: refined entries verified per (read, seed)
+VERIFY_SLAB_T1 = 8
+#: tier-2 verify slab for reads that overflowed tier 1
+VERIFY_SLAB = 64
+#: max surviving candidates per (read, strand)
+CAND_SLAB = 32
+#: worklist slots per read in a chunk; spills take the host path
+WL_FACTOR = 4
+
+#: per-device CSR entry-count ceiling: entry INDICES are < 2^31 (int32 in
+#: the resident tables); genome POSITIONS are u32 (4 Gbp format limit)
+ENTRY_LIMIT = 1 << 31
+
+
+def check_entry_limit(n_entries: int, where: str) -> None:
+    """Raise before a device-local table overflows its int32 indices."""
+    if n_entries >= ENTRY_LIMIT:
+        raise ValueError(
+            f"{where}: {n_entries} entries >= 2^31 would overflow the "
+            f"pipeline's int32 entry indices; shard the table (tp) so each "
+            f"device-local CSR stays below {ENTRY_LIMIT} entries"
+        )
+
+
+def _lex_ge(es, rs):
+    """Lexicographic (entry >= read) on N masked word pairs."""
+    ge = es[-1] >= rs[-1]
+    for e, r in zip(reversed(es[:-1]), reversed(rs[:-1])):
+        ge = (e > r) | ((e == r) & ge)
+    return ge
+
+
+def _binary_lower(l, r, probe, bits: int):
+    """First index in [l, r) where monotone ``probe`` holds (lower bound).
+
+    ``walt_tpu``'s ``_kary_lower`` at k = 2 (the arity it measured best).
+    ``bits`` bounds the interval length by 2^bits - 1; each of the ``bits``
+    rounds halves every active interval with ``l + (r - l) // 2``, which
+    cannot overflow.
+    """
+    for _ in range(max(1, bits)):
+        active = l < r
+        m = l + (r - l) // 2
+        ge = probe(m)
+        new_l = torch.where(ge, l, m + 1)
+        new_r = torch.where(ge, m, r)
+        l = torch.where(active, new_l, l)
+        r = torch.where(active, new_r, r)
+    return l
+
+
+def _take(t, idx):
+    """Gather with indices clamped into range (JAX's ``mode="clip"``)."""
+    return t[idx.clamp(0, t.shape[0] - 1)]
+
+
+def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
+                    key_words, start_index, bucket_flagged, *,
+                    pattern_name: str, ag_wildcard: bool, search_bits: int,
+                    verify_slab: int = VERIFY_SLAB_T1,
+                    cand_slab: int = CAND_SLAB, seeds: tuple | None = None,
+                    wl_factor: float = WL_FACTOR, exact_b: bool = False,
+                    uniq_words=None, uniq_off=None, uniq_counter=None,
+                    uniq_bits: int = 0, full_mask: bool = False):
+    """Map a read batch against one table.
+
+    preads: (B, W) int32 packed read codes (u32 bits); lens: (B,) int32;
+    the table tensors as :func:`walt_tpu_torch.ops.device_index.place_table`
+    and the device builders make them.  Returns (cand_seed (B, C) int8,
+    cand_pos (B, C) int64 u32 values, cand_mm (B, C) int32, cand_cnt (B,)
+    int32, fallback (B,) bool) with C = ``cand_slab``.
+
+    ``exact_b``: False (valid whenever ``b >= verify_slab``) probes only the
+    first packed key word and enforces the remaining cared positions from
+    the verify window; True probes all words lexicographically so the
+    refined COUNT is exact within the slab (needed when ``b`` is smaller).
+
+    ``uniq_*``: the word-0 run index (``build_uniq_device``); with
+    ``uniq_bits > 0`` and not ``exact_b`` the search runs in run space and
+    slab admission is arithmetic on the run bounds.  ``key_words`` may then
+    be a dummy.  A 1-D int16 ``key_words`` holds key16 prefixes.
+
+    ``full_mask``: promise that every real read compares a full first key
+    word (seed_len >= key_weight + 16), so the refined run is one word-0 run
+    and needs no upper-bound probe chain.
+    """
+    pattern = get_pattern(pattern_name)
+    plen = pattern.pattern_len
+    seeds = tuple(range(plen)) if seeds is None else seeds
+    S = len(seeds)
+    kw = pattern.key_weight
+    cared = pattern.cared
+    B, W = preads.shape
+    Lmax = W * 16
+    n_entries = index.shape[0]
+    C = verify_slab
+    dev = preads.device
+
+    def const(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    # --- read conversion (mapping.cpp:142-164) on packed words ---
+    words = u32(preads)
+    conv = packing.convert_ga(words) if ag_wildcard else packing.convert_ct(words)
+
+    lens = lens.to(torch.int64)
+    read_ok = lens >= pattern.min_read_len  # (B,)
+    repeats = torch.clamp((lens - plen + 1) // plen, max=pattern.max_repeats())
+    seed_len = torch.clamp(repeats * pattern.cared_weight,
+                           max=pattern.cared_size)
+
+    # cared-base extraction over static position tables:
+    # pos[s][p] = cared[p] + seed shift s -> word index / in-word shift
+    n_cared = min(pattern.cared_size, kw + 48)
+    pos_tab = np.asarray(
+        [[int(cared[p]) + s for p in range(n_cared)] for s in seeds]
+    )  # (S, n_cared)
+    in_range_tab = pos_tab < Lmax
+    word_tab = const(np.where(in_range_tab, pos_tab // 16, 0))
+    shift_tab = const(30 - 2 * (pos_tab % 16))[None]
+    cvals = (conv[:, word_tab] >> shift_tab) & 3  # (B, S, n_cared)
+    cvals = torch.where(const(in_range_tab, torch.bool)[None], cvals, 0)
+
+    def pack16(vals):
+        """(…, k<=16) 2-bit codes -> one 32-bit value, first most significant."""
+        k = vals.shape[-1]
+        return (vals << const(np.arange(k - 1, -1, -1) * 2)).sum(-1)
+
+    # --- seed hash keys: (B, S) ---
+    key = pack16(cvals[..., :kw])
+
+    use_uniq = uniq_bits > 0 and not exact_b and uniq_words is not None
+    # bucket_flagged bits: bit0 = host path in the fast mode, bit1 = host
+    # path in the exact_b mode.  On the uniq path lo/hi are RUN-space bounds
+    bounds = uniq_counter if use_uniq else counter
+    fbit = 2 if exact_b else 1
+    lo = bounds[key].to(torch.int64)  # (B, S)
+    hi = bounds[key + 1].to(torch.int64)
+    flagged = (bucket_flagged[key] & fbit) != 0
+
+    # --- read prefix key words (cared[kw..kw+47] per shift) + masks; reads
+    # of W words cannot need deeper words than seed_len_for_len(W*16)
+    max_seed_len = min(int(pattern.seed_len_for_len(Lmax)), kw + 48)
+    npw = max(1, min(3, -(-(max_seed_len - kw) // 16)))
+    rwords = []
+    for w in range(npw):
+        a, z = kw + w * 16, min(kw + w * 16 + 16, n_cared)
+        if a >= z:
+            rwords.append(torch.zeros((B, S), dtype=torch.int64, device=dev))
+            continue
+        rwords.append((pack16(cvals[..., a:z]) << (2 * (16 - (z - a))))
+                      & MASK32)
+    masks = []
+    for w in range(npw):
+        nbits = torch.clamp(seed_len[:, None] - kw - 16 * w, 0, 16) * 2
+        shift = torch.clamp(32 - nbits, 0, 31)
+        m = torch.where(nbits > 0, (MASK32 << shift) & MASK32, 0)
+        masks.append(m.expand(B, S))
+    rws = [rw & m for rw, m in zip(rwords, masks)]
+
+    # key words probed by the search and slab admission; the fast path
+    # defers words beyond the first to the window cared check
+    nprobe = npw if exact_b else 1
+    run_len = None
+    key16 = (not use_uniq) and key_words.dim() == 1 \
+        and key_words.dtype == torch.int16
+    if key16 and exact_b:
+        raise ValueError("exact_b path needs full key words, not key16")
+    if not use_uniq and not key16:
+        if key_words.dim() == 1:
+            key_words = key_words[:, None]
+        if key_words.shape[1] < nprobe:
+            raise ValueError(
+                f"device table stores {key_words.shape[1]} key word(s) but "
+                f"the exact_b={exact_b} path probes {nprobe}; rebuild the "
+                f"table with n_key_words={nprobe}"
+            )
+
+        def kword(w, idx):
+            return u32(key_words[idx.clamp(0, n_entries - 1), w])
+
+        def probe(mid):
+            es = [kword(w, mid) & m for w, m in zip(range(nprobe), masks)]
+            return _lex_ge(es, rws[:nprobe])
+
+        lower = _binary_lower(lo, hi, probe, search_bits)
+    elif key16:
+        m16 = masks[0] >> 16
+        rw16 = rws[0] >> 16  # rws already masked
+
+        def k16(idx):
+            return _take(key_words, idx).to(torch.int64) & 0xFFFF
+
+        lower = _binary_lower(lo, hi, lambda m: (k16(m) & m16) >= rw16,
+                              search_bits)
+    else:
+        # run-space refinement: the lower bound over uniq_words needs
+        # uniq_bits probes, and the run bounds then give the refined region
+        # in entry space with uniq_off gathers
+        m0, rw0 = masks[0], rws[0]
+
+        def uword(idx):
+            return u32(_take(uniq_words, idx)) & m0
+
+        lu = _binary_lower(lo, hi, lambda m: uword(m) >= rw0, uniq_bits)
+        elo = _take(uniq_off, lu).to(torch.int64)
+        if full_mask:
+            # every real read compares a full word 0: the refined region is
+            # exactly one run, present iff uniq_words[lu] equals it
+            hit = (lu < hi) & (uword(lu) == rw0)
+            ehi = torch.where(hit, _take(uniq_off, lu + 1).to(torch.int64),
+                              elo)
+        else:
+            # masked (short-read) prefixes can span several runs: a second
+            # probe chain finds the first run past the prefix group
+            l2 = _binary_lower(lu, hi, lambda m: uword(m) > rw0, uniq_bits)
+            ehi = _take(uniq_off, l2).to(torch.int64)
+        lower = elo
+        run_len = torch.clamp(ehi - elo, min=0)
+
+    # --- slab membership: an entry is in the reference's refined range iff
+    # its masked key words EQUAL the read's masked prefix words
+    shifts = const(seeds)  # (S,)
+    jC = torch.arange(C, dtype=torch.int64, device=dev)[None, None, :]
+    if use_uniq:
+        # run bounds are exact: slab admission is pure arithmetic
+        refined_cnt = torch.clamp(run_len, max=C)
+        refined = jC < refined_cnt[..., None]
+        capped = refined_cnt > b  # never fires in the fast path (b >= slab)
+        overflow = (run_len > C) & ~capped
+    else:
+        refined = jC < (hi - lower)[..., None]
+        slotc = torch.clamp(lower[..., None] + jC, 0, n_entries - 1)
+        if key16:
+            es = (key_words[slotc].to(torch.int64) & 0xFFFF) & m16[..., None]
+            refined = refined & (es == rw16[..., None])
+        else:
+            for w, m, rw in zip(range(nprobe), masks, rws):
+                es = u32(key_words[slotc, w]) & m[..., None]
+                refined = refined & (es == rw[..., None])
+        refined_cnt = refined.sum(-1)
+        # seed skipped entirely (mapping.cpp:275-277)
+        capped = refined_cnt > b
+        # run may extend past the slab: every examined slot matched and
+        # bucket entries remain beyond it; a capped seed is already exact
+        examined = torch.clamp(hi - lower, 0, C)
+        overflow = (refined_cnt == examined) & ((hi - lower) > C) & ~capped
+
+    keep_pre = (refined & ~capped[..., None] & ~overflow[..., None]
+                & read_ok[:, None, None])
+
+    # --- compact the refined survivors into one flat cross-read worklist in
+    # (read, seed asc, bucket position asc) order = examination order
+    M = max(1, int(wl_factor * B))
+    n_flat = B * S * C
+    keep_flat = keep_pre.reshape(n_flat)
+    gidx = torch.cumsum(keep_flat, 0) - 1
+    wl_src = torch.full((M + 1,), -1, dtype=torch.int64, device=dev)
+    wl_src[torch.where(keep_flat & (gidx < M), gidx, M)] = torch.arange(
+        n_flat, dtype=torch.int64, device=dev)
+    wl_src = wl_src[:M]
+    # reads whose survivors spilled past the worklist take the host path
+    wl_spill = (keep_flat & (gidx >= M)).reshape(B, S * C).any(1)
+
+    wl_valid = wl_src >= 0
+    wl_flat = torch.clamp(wl_src, min=0)
+    wl_bs = wl_flat // C
+    wl_read = wl_flat // (S * C)
+    wl_seedi = wl_bs % S
+    wl_entryidx = lower.reshape(-1)[wl_bs] + wl_flat % C
+    wl_shift = shifts[wl_seedi]  # (M,)
+    # genome POSITIONS are u32 end to end (4 Gbp format); the u32 wraps of
+    # the JAX code are reproduced by masking
+    wl_entry = u32(_take(index, wl_entryidx))
+    si = u32(start_index)
+    chrom = torch.searchsorted(si, wl_entry, right=True) - 1
+    ch_start = si[chrom]
+    ch_end = si[torch.clamp(chrom + 1, max=si.shape[0] - 1)]
+    ok_head = ((wl_entry - ch_start) & MASK32) >= wl_shift  # mapping.cpp:282
+    wl_gpos = (wl_entry - wl_shift) & MASK32  # wraps only on ~ok_head rows
+    wl_len = lens[wl_read]
+    ok_tail = ((wl_gpos + wl_len) & MASK32) < ch_end  # mapping.cpp:285
+
+    # converted read words + length lane masks for the worklist rows
+    wl_conv = conv[wl_read]  # (M, W)
+    wl_lane = packing.len_lane_masks(wl_len, W)
+    mm, win = verify.verify_windows(
+        pseq, packing.to_i32(wl_gpos), packing.to_i32(wl_conv),
+        packing.to_i32(wl_lane), W,
+    )
+    mm = mm.to(torch.int64)
+    win = u32(win)
+
+    wl_rep = repeats[wl_read]
+    for shift, min_rep, posn in pattern.verify_skip:
+        if posn < Lmax:
+            wv = (win[:, posn // 16] >> (30 - 2 * (posn % 16))) & 3
+            rv = packing.extract_lane(wl_conv, posn)
+            cond = ((wl_shift == shift) & (wl_rep >= min_rep)
+                    & (posn < wl_len) & (wv != rv))
+            mm = mm - cond.to(torch.int64)
+
+    wl_keep = wl_valid & ok_head & ok_tail & (mm <= max_mm)
+
+    if not exact_b and (npw > 1 or key16):
+        # Window cared check: a fast-path row is only known to match the
+        # read on the hash key + the first key word (or its 16-bit prefix);
+        # the refined region also requires equality at cared positions
+        # kw+16 (key16: kw+8) .. seed_len-1 (mapping.cpp:198-222).  Those
+        # bases sit inside the verify window: AND the XOR-fold with a static
+        # per-shift cared-lane mask and a per-row cutoff at cared[seed_len].
+        check_from = kw + 8 if key16 else kw + 16
+        cared_np = np.zeros((S, W), dtype=np.int64)
+        for si_, s in enumerate(seeds):
+            for jj in range(check_from, n_cared):
+                p = int(cared[jj]) + s
+                if p < Lmax:
+                    cared_np[si_, p // 16] |= 1 << (30 - 2 * (p % 16))
+        d2 = win ^ wl_conv
+        fold2 = (d2 | (d2 >> 1)) & wl_lane
+        # cared[j] is periodic-affine: (j // cw) * plen + cared[j % cw]
+        cwt = pattern.cared_weight
+        if not all(int(cared[j]) == (j // cwt) * plen + int(cared[j % cwt])
+                   for j in range(n_cared)):
+            raise ValueError("cared table is not periodic-affine; "
+                             "the exact_b path is required")
+        slj = torch.clamp(wl_rep * cwt, max=n_cared)  # seed_len per row
+        offv = const(cared[:cwt])[slj % cwt]
+        cutoff = (slj // cwt) * plen + offv + wl_shift
+        cut_mask = packing.len_lane_masks(cutoff, W)  # lanes < cutoff
+        viol = (fold2 & const(cared_np)[wl_seedi] & cut_mask).any(1)
+        wl_keep = wl_keep & ~viol
+
+    # --- ordered compaction into the per-read candidate slab ---
+    keep64 = wl_keep.to(torch.int64)
+    cnt = torch.zeros(B, dtype=torch.int64, device=dev).index_add_(
+        0, wl_read, keep64)
+    base = torch.cumsum(cnt, 0) - cnt  # kept entries before each read
+    rank = torch.cumsum(keep64, 0) - 1
+    dest = rank - base[wl_read]
+    # dropped rows and ranks past the slab land in the spare column
+    dest = torch.where(wl_keep & (dest < cand_slab), dest, cand_slab)
+
+    def compact(vals, fill, dtype):
+        out = torch.full((B, cand_slab + 1), fill, dtype=dtype, device=dev)
+        out[wl_read, dest] = vals.to(dtype)
+        return out[:, :cand_slab]
+
+    cand_seed = compact(wl_shift, -1, torch.int8)
+    cand_pos = compact(wl_gpos, 0, torch.int64)
+    cand_mm = compact(mm, 0, torch.int32)
+
+    fallback = (
+        (overflow.any(1)
+         # flagged buckets: stored order / padding quirks make the refined
+         # run irreproducible on device -> exact host path
+         | (flagged & (hi > lo)).any(1))
+        & read_ok
+        # packed key words cover cared positions kw..kw+47 only
+        | (seed_len > kw + 48)
+        | (cnt > cand_slab)
+        | wl_spill
+    )
+    return (cand_seed, cand_pos, cand_mm,
+            torch.clamp(cnt, max=cand_slab).to(torch.int32), fallback)

@@ -11,22 +11,31 @@ Phases, one line of output each (any failure raises and exits non-zero):
    power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels (csrc/) with nvcc into build/kernels/;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
-   card, exact equality, at the main-path shape and at edge shapes; times
-   both at the main-path shape, as device time (torch.profiler) and as
-   wall time per wrapper call (CUDA events);
+   card, exact equality, at the SE and PE main-path shapes and at edge
+   shapes; times both at the SE main-path shape, as device time
+   (torch.profiler) and as wall time per wrapper call (CUDA events);
 4. data: a 128 Mbp repetitive synthetic genome (about the size of the
-   Arabidopsis thaliana genome, a standard WGBS organism), its WALT index
-   and 1,000,000 x 100 bp bisulfite reads, built once into
-   build/smoke_data/;
-5. backend parity: TorchBackend.map_single_end on all reads == the native
-   exact replay on every read the device resolved, with a device-resolved
-   share of at least 75%;
-6. end to end: the port's CLI (one warm-up run, one timed run) writes MR
-   output and .mapstats byte-identical to the exact host path.
+   Arabidopsis thaliana genome, a standard WGBS organism), its WALT index,
+   1,000,000 x 100 bp bisulfite reads and 500,000 x 100 bp bisulfite read
+   pairs (fragments 150-500 bp), built once into build/smoke_data/;
+5. SE backend parity: TorchBackend.map_single_end on all reads == the
+   native exact replay on every read the device resolved, with a
+   device-resolved share of at least 75%;
+6. SE end to end: the port's CLI (one warm-up run, one timed run) writes MR
+   output and .mapstats byte-identical to the exact host path;
+7. PE backend parity: TorchBackend.map_mate_slabs on both mates, finalized
+   by native.pe_finalize, == the native exact ranking and pair join on
+   every pair the device resolved, with a device-resolved share of at
+   least 75%;
+8. PE end to end: the port's CLI with -1/-2 (one warm-up run, one timed
+   run) writes MR output and .mapstats byte-identical to the exact host
+   path.
 
 The last two lines are one JSON object describing the kernels (``ms`` and
 ``plain_ms`` are device time per call, ``wall_ms`` and ``plain_wall_ms``
-wall time per call) and one JSON object ``{"ok": true, "device": {...}}``.
+wall time per call; ``launches`` and ``launches_pe`` count the launches of
+the timed SE and PE CLI runs) and one JSON object
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,12 +50,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "build", "smoke_data")
 GENOME_BASES = 128_000_000
 N_READS = 1_000_000
+N_PAIRS = 500_000
 READ_LEN = 100
 #: share of reads the device must resolve without the host fallback
 MIN_DEVICE_SHARE = 0.75
 #: main-path worklist shape of the verify kernel: tier-1 worklist factor 1.5
 #: x the 131,072-read chunk, 7 words for 100 bp reads
 MAIN_M, MAIN_W = 196_608, 7
+#: the PE mate step's verify shape: worklist factor 3 x the 131,072-read
+#: chunk
+PE_M = 393_216
 
 
 def say(phase: str, msg: str) -> None:
@@ -120,17 +133,18 @@ def verify_inputs(rng, M: int, W: int, Wg: int, device):
 
 
 def check_verify_kernel(device, Wg: int):
-    """Phase 3: kernel == plain on every listed shape; times at the main
-    shape.  Returns (max_abs_err, kernel device ms, plain device ms,
-    kernel wall ms per call, plain wall ms per call)."""
+    """Phase 3: kernel == plain on every listed shape; times at the SE
+    main shape (and device time at the PE one).  Returns (max_abs_err,
+    kernel device ms, plain device ms, kernel wall ms per call, plain wall
+    ms per call), all at the SE main shape."""
     import numpy as np
     import torch
 
     from walt_tpu_torch.ops import packing, verify
 
     rng = np.random.default_rng(2024)
-    shapes = [(MAIN_M, MAIN_W), (1001, 7), (257, 7), (5003, 1), (5003, 3),
-              (5003, 13), (5003, 63)]
+    shapes = [(MAIN_M, MAIN_W), (PE_M, MAIN_W), (1001, 7), (257, 7),
+              (5003, 1), (5003, 3), (5003, 13), (5003, 63)]
     err = 0
     for M, W in shapes:
         args = verify_inputs(rng, M, W, Wg, device)
@@ -149,6 +163,10 @@ def check_verify_kernel(device, Wg: int):
     # in turns: plain, kernel, kernel, plain
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
     dp1, dk1, dk2, dp2 = (device_ms(f) for f in (plain, kern, kern, plain))
+    pe_args = verify_inputs(rng, PE_M, MAIN_W, Wg, device)
+    pe_k, pe_p = (device_ms(lambda f=f: f(*pe_args, MAIN_W))
+                  for f in (verify.verify_windows,
+                            verify.verify_windows_reference))
     say("kernel", f"verify_windows == plain on {len(shapes)} shapes "
                   f"(sh 0..30, end clamp, gpos >= 2^31); at M={MAIN_M} "
                   f"W={MAIN_W}: device time (torch.profiler) kernel "
@@ -156,42 +174,63 @@ def check_verify_kernel(device, Wg: int):
                   f"{dp1 * 1e3:.1f}/{dp2 * 1e3:.1f} us per call; wall per "
                   f"call (CUDA events over 50 calls, launch-bound) kernel "
                   f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain "
-                  f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us")
+                  f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us; at the PE shape "
+                  f"M={PE_M}: device time kernel {pe_k * 1e3:.1f} us, plain "
+                  f"{pe_p * 1e3:.1f} us per call")
     return (err, (dk1 + dk2) / 2, (dp1 + dp2) / 2, (k1 + k2) / 2,
             (p1 + p2) / 2)
 
 
-def build_data(data_dir: str, n_bases: int, n_reads: int, read_len: int):
-    """Phase 4: genome FASTA, 5-file WALT index and FASTQ, built once."""
+def build_data(data_dir: str, n_bases: int, n_reads: int, n_pairs: int,
+               read_len: int):
+    """Phase 4: genome FASTA, 5-file WALT index, SE FASTQ and the two PE
+    FASTQs, each built once (the SE set and the PE set under stamps of
+    their own).  Returns (index, fastq, (fastq_1, fastq_2))."""
     from walt_tpu.index.build import build_all_tables
     from walt_tpu.index.io_walt import write_index
     from walt_tpu.synth import (
-        codes_to_fastq, make_genome_repetitive, sample_reads,
+        codes_to_fastq, make_genome_repetitive, sample_pairs, sample_reads,
         write_genome_fasta,
     )
 
     index = os.path.join(data_dir, "smoke.dbindex")
     fastq = os.path.join(data_dir, "reads.fq")
+    pe = (os.path.join(data_dir, "pairs_1.fq"),
+          os.path.join(data_dir, "pairs_2.fq"))
     stamp = os.path.join(data_dir, f"{n_bases}_{n_reads}_{read_len}.ok")
-    if os.path.exists(stamp):
+    pe_stamp = os.path.join(data_dir,
+                            f"pe_{n_bases}_{n_pairs}_{read_len}.ok")
+    if os.path.exists(stamp) and os.path.exists(pe_stamp):
         say("data", f"cached in {data_dir}")
-        return index, fastq
+        return index, fastq, pe
     os.makedirs(data_dir, exist_ok=True)
     t0 = time.perf_counter()
     genome = make_genome_repetitive(n_bases, n_chroms=2, seed=42)
+    if not os.path.exists(pe_stamp):
+        c1, l1, c2, l2 = sample_pairs(genome, n_pairs, read_len, seed=11,
+                                      frag_lo=150, frag_hi=500)
+        codes_to_fastq(c1, l1, pe[0])
+        codes_to_fastq(c2, l2, pe[1])
+        del c1, c2
+        open(pe_stamp, "w").close()
+    t1 = time.perf_counter()
+    say("data", f"{n_pairs} x {read_len} bp read pairs in "
+                f"{t1 - t0:.1f} s (genome included)")
+    if os.path.exists(stamp):
+        return index, fastq, pe
     fasta = os.path.join(data_dir, "genome.fa")
     write_genome_fasta(genome, fasta)
     codes, lens, _ = sample_reads(genome, n_reads, read_len, seed=7)
     codes_to_fastq(codes, lens, fastq)
     del genome, codes
-    t1 = time.perf_counter()
+    t2 = time.perf_counter()
     g, tables = build_all_tables([fasta], verbose=False)
     write_index(index, g, tables)
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     open(stamp, "w").close()
     say("data", f"{n_bases / 1e6:.0f} Mbp genome + {n_reads} x {read_len} bp "
-                f"reads in {t1 - t0:.1f} s, 4-table index in {t2 - t1:.1f} s")
-    return index, fastq
+                f"reads in {t2 - t1:.1f} s, 4-table index in {t3 - t2:.1f} s")
+    return index, fastq, pe
 
 
 def backend_parity(index: str, fastq: str, device, min_share: float):
@@ -310,6 +349,176 @@ def end_to_end(index: str, fastq: str, device, n_reads: int):
     return launches, wall
 
 
+#: the per-pair fields of native.pe_finalize compared with the exact path
+PE_FIELDS = ("code", "r1_mm", "r1_pos", "r1_strand", "r2_mm", "r2_pos",
+             "r2_strand")
+PE_MATE_FIELDS = ("bm_pos", "bm_times", "bm_strand", "bm_mm")
+
+
+def map_pairs_vs_exact(backend, mates, tables, chrom_start):
+    """TorchBackend.map_mate_slabs on both mates (mate 1 C->T on the CT
+    tables, mate 2 G->A on the GA tables), finalized by native.pe_finalize
+    with the OR of the mates' fallback masks as ``skip``, against
+    native.pe_exact_ranked + pe_join_ranked on all pairs, at the CLI's
+    default flags.  Raises on any difference in a pair no mate sent to
+    fallback.  Returns (resolved share, verify launches, map_mate_slabs
+    seconds, exact-path seconds)."""
+    import numpy as np
+
+    from walt_tpu import native
+    from walt_tpu.constants import get_pattern
+    from walt_tpu_torch.ops import verify
+
+    pattern = get_pattern("3")
+    top_k, frag_range, b, max_mm = 50, 1000, 5000, 6
+    (codes1, lens1), (codes2, lens2) = mates
+    lens1, lens2 = lens1.astype(np.int32), lens2.astype(np.int32)
+    verify.launches = 0
+    t0 = time.perf_counter()
+    s1, fb1 = backend.map_mate_slabs(codes1, lens1, tables[0], False, b,
+                                     max_mm, pattern)
+    s2, fb2 = backend.map_mate_slabs(codes2, lens2, tables[1], True, b,
+                                     max_mm, pattern)
+    t1 = time.perf_counter()
+    launches = verify.launches
+    skip = fb1 | fb2
+    fin = native.pe_finalize(s1 + s2, skip.astype(np.uint8), lens1, lens2,
+                             chrom_start, top_k, frag_range, max_mm,
+                             pattern.exit1_seed)
+    t2 = time.perf_counter()
+    ranked = [native.pe_exact_ranked(c, n, t, ag, b, max_mm, top_k, pattern)
+              for c, n, t, ag in ((codes1, lens1, tables[0], False),
+                                  (codes2, lens2, tables[1], True))]
+    if fin is None or ranked[0] is None:
+        raise RuntimeError("the native PE library is unavailable")
+    exact = native.pe_join_ranked(ranked[0], ranked[1], lens1, lens2,
+                                  chrom_start, frag_range, max_mm, top_k)
+    t3 = time.perf_counter()
+    ok = ~skip
+    for k in PE_FIELDS + PE_MATE_FIELDS:
+        got, want = fin[k], exact[k]
+        if k in PE_MATE_FIELDS:
+            got, want = got.reshape(-1, 2), want.reshape(-1, 2)
+        diff = got[ok] != want[ok]
+        n_bad = int((diff.any(1) if diff.ndim > 1 else diff).sum())
+        if n_bad:
+            raise AssertionError(f"finalized {k} != exact path on {n_bad} "
+                                 f"resolved pairs")
+    if launches <= 0:
+        raise AssertionError("the PE mapping never launched the verify "
+                             "kernel")
+    return float(ok.mean()), launches, t1 - t0, t3 - t2
+
+
+def pe_parity(index: str, pe, device, min_share: float):
+    """Phase 7: TorchBackend.map_mate_slabs + native.pe_finalize == the
+    exact PE path on every device-resolved pair."""
+    import numpy as np
+    import torch
+
+    from walt_tpu.host.fastq import FgetsLines, load_batch
+    from walt_tpu.index import io_walt
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    gm, _ = io_walt.read_head(index)
+    tables = [[io_walt.read_table_cached(index + s, gm) for s in pair]
+              for pair in (("_CT00", "_CT01"), ("_GA10", "_GA11"))]
+    mates = []
+    for fq in pe:
+        lines = FgetsLines(fq)
+        mates.append(load_batch(lines, 1 << 40).packed())
+        lines.close()
+    n = mates[0][0].shape[0]
+    backend = TorchBackend(device=device)
+    backend.table_budget_hint = 4
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    share, launches, t_map, t_exact = map_pairs_vs_exact(
+        backend, mates, tables, gm.start_index.astype(np.uint32))
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    if backend.total_reads != 2 * n:
+        raise AssertionError(f"total_reads {backend.total_reads} != {2 * n}")
+    if share < min_share:
+        raise AssertionError(f"device-resolved pair share {share:.4f} < "
+                             f"{min_share}")
+    say("pe parity", f"{n} pairs: device-resolved pair share {share:.4f}, "
+                     f"finalized pairs equal to the exact path on all of "
+                     f"them; rungs {backend.rungs}; verify launches "
+                     f"{launches}; map_mate_slabs (both mates) {t_map:.2f} s "
+                     f"(tables included), exact ranking + join on all pairs "
+                     f"{t_exact:.2f} s; peak device memory "
+                     f"{peak / 2**30:.2f} GiB")
+    backend.free_tables()
+    return share, peak
+
+
+class AllFallbackPE:
+    """A PE backend whose mate step resolves nothing: process_paired_end
+    maps every pair on the exact host path (native.pe_exact_ranked +
+    pe_join_ranked)."""
+
+    cand_slab = 1
+
+    def map_mate_slabs_begin(self, codes, lens, tables, ag_wildcard, b,
+                             max_mismatches, pattern):
+        return codes.shape[0]
+
+    def map_mate_slabs_finish(self, n):
+        import numpy as np
+
+        return [dict(seed=np.zeros((n, 1), np.int8),
+                     pos=np.zeros((n, 1), np.uint32),
+                     mm=np.zeros((n, 1), np.int32),
+                     cnt=np.zeros(n, np.int32)) for _ in range(2)], \
+            np.ones(n, bool)
+
+    def map_mate_slabs(self, *args):
+        return self.map_mate_slabs_finish(self.map_mate_slabs_begin(*args))
+
+
+def pe_end_to_end(index: str, pe, device, n_pairs: int):
+    """Phase 8: the CLI's PE output == the exact host path's, byte for
+    byte.  Returns (launches of the timed run, wall seconds)."""
+    from walt_tpu import perf
+    from walt_tpu.core.paired_end import process_paired_end
+    from walt_tpu_torch import cli
+    from walt_tpu_torch.ops import verify
+
+    work = os.path.dirname(index)
+    out = os.path.join(work, "torch_pe.mr")
+    argv = ["-i", index, "-1", pe[0], "-2", pe[1], "-o", out,
+            "--device", device.type]
+    if cli.main(argv) != 0:  # warm-up: kernel load, first allocations
+        raise AssertionError("the PE CLI warm-up run failed")
+    perf.reset()
+    verify.launches = 0
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("the timed PE CLI run failed")
+    wall = time.perf_counter() - t0
+    launches = verify.launches
+    stages = perf.snapshot()
+
+    ref = os.path.join(work, "exact_pe.mr")
+    open(ref, "w").close()
+    open(ref + ".mapstats", "w").close()
+    process_paired_end(index, pe[0], pe[1], ref, backend=AllFallbackPE())
+    for suffix in ("", ".mapstats"):
+        with open(out + suffix, "rb") as a, open(ref + suffix, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"PE CLI output{suffix or ' (MR)'} "
+                                     f"differs from the exact host path")
+    if launches <= 0:
+        raise AssertionError("the PE CLI run never launched the verify "
+                             "kernel")
+    say("pe e2e", f"CLI {n_pairs / wall:.1f} pairs/s ({wall:.2f} s wall for "
+                  f"{n_pairs} pairs, tables included), verify launches "
+                  f"{launches}; MR and .mapstats byte-identical to the exact "
+                  f"host path; host stages {stages}")
+    return launches, wall
+
+
 def main() -> int:
     import torch
 
@@ -332,9 +541,12 @@ def main() -> int:
     # a genome-sized pseq: 128 Mbp -> 8M packed words
     err, k_ms, p_ms, k_wall, p_wall = check_verify_kernel(
         device, Wg=GENOME_BASES // 16)
-    index, fastq = build_data(DATA, GENOME_BASES, N_READS, READ_LEN)
+    index, fastq, pe = build_data(DATA, GENOME_BASES, N_READS, N_PAIRS,
+                                  READ_LEN)
     backend_parity(index, fastq, device, MIN_DEVICE_SHARE)
     launches, _ = end_to_end(index, fastq, device, N_READS)
+    pe_parity(index, pe, device, MIN_DEVICE_SHARE)
+    launches_pe, _ = pe_end_to_end(index, pe, device, N_PAIRS)
 
     if "jax" in sys.modules:
         raise AssertionError("walt_tpu_torch imported jax")
@@ -342,7 +554,8 @@ def main() -> int:
         "name": "verify_windows", "route": "cuda",
         "source": "walt_tpu_torch/csrc/verify.cu",
         "replaces": "walt_tpu/ops/pallas_verify.py:93",
-        "launches": launches, "max_abs_err": err,
+        "launches": launches, "launches_pe": launches_pe,
+        "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms,
         "wall_ms": k_wall, "plain_wall_ms": p_wall,
     }]}), flush=True)

@@ -2,8 +2,9 @@
 
 ``python -m walt_tpu_torch.cli --device cpu`` must write MR/SAM output and
 ``.mapstats`` byte-identical to ``walt_tpu.cli --backend numpy`` (the exact
-host oracle) for every flag set below, and to ``--backend jax`` for the
-default flags and ``-A``.  A subprocess shows that the port runs without
+host oracle) for every flag set below, single-end (``-r``) and paired-end
+(``-1``/``-2``), and to ``--backend jax`` for the default flags and ``-A``
+(SE) or ``-sam`` (PE).  A subprocess shows that the port runs without
 importing JAX (this test process has it loaded through tests/conftest.py).
 """
 
@@ -17,20 +18,27 @@ import torch
 from walt_tpu_torch import cli as tcli
 
 FLAG_SETS = [[], ["-sam"], ["-u"], ["-a"], ["-A"], ["-b", "3"]]
+PE_FLAG_SETS = [[], ["-sam"], ["-a", "-u"], ["-P"], ["-L", "300"],
+                ["-k", "10"]]
 
 
-def _outputs(out, flags):
+def _outputs(out, flags, pe=False):
     files = [out, out + ".mapstats"]
     if "-sam" not in flags:
-        files += [out + "_unmapped"] if "-u" in flags else []
-        files += [out + "_ambiguous"] if "-a" in flags else []
+        for m in ("_1", "_2") if pe else ("",):
+            files += [f"{out}{m}_unmapped"] if "-u" in flags else []
+            files += [f"{out}{m}_ambiguous"] if "-a" in flags else []
     return files
 
 
-def _assert_same(a, b, flags):
-    for fa, fb in zip(_outputs(a, flags), _outputs(b, flags)):
+def _assert_same(a, b, flags, pe=False):
+    for fa, fb in zip(_outputs(a, flags, pe), _outputs(b, flags, pe)):
         with open(fa, "rb") as x, open(fb, "rb") as y:
             assert x.read() == y.read(), os.path.basename(fa)
+
+
+def _reads_args(pe_fastq):
+    return ["-1", pe_fastq[0], "-2", pe_fastq[1]]
 
 
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=lambda f: " ".join(f) or "default")
@@ -58,6 +66,47 @@ def test_cli_matches_jax_backend(tmp_path, my_index, se_fastq, flags):
     _assert_same(ref, out, flags)
 
 
+@pytest.mark.parametrize("flags", PE_FLAG_SETS,
+                         ids=lambda f: " ".join(f) or "default")
+def test_pe_cli_matches_numpy_backend(tmp_path, my_index, pe_fastq, flags):
+    from walt_tpu.cli import main_map
+
+    ref, out = str(tmp_path / "numpy.mr"), str(tmp_path / "torch.mr")
+    main_map(["-i", my_index, *_reads_args(pe_fastq), "-o", ref,
+              "--backend", "numpy", *flags])
+    assert tcli.main(["-i", my_index, *_reads_args(pe_fastq), "-o", out,
+                      "--device", "cpu", *flags]) == 0
+    _assert_same(ref, out, flags, pe=True)
+
+
+@pytest.mark.parametrize("flags", [[], ["-sam"]],
+                         ids=lambda f: " ".join(f) or "default")
+def test_pe_cli_matches_jax_backend(tmp_path, my_index, pe_fastq, flags):
+    from walt_tpu.cli import main_map
+
+    ref, out = str(tmp_path / "jax.mr"), str(tmp_path / "torch.mr")
+    main_map(["-i", my_index, *_reads_args(pe_fastq), "-o", ref,
+              "--backend", "jax", *flags])
+    assert tcli.main(["-i", my_index, *_reads_args(pe_fastq), "-o", out,
+                      "--device", "cpu", *flags]) == 0
+    _assert_same(ref, out, flags, pe=True)
+
+
+def test_se_and_pe_in_one_run(tmp_path, my_index, se_fastq, pe_fastq):
+    """-r and -1/-2 together: the SE file maps first, then the pair, each
+    into its own output, as walt_tpu's CLI does."""
+    from walt_tpu.cli import main_map
+
+    ref = [str(tmp_path / f"numpy_{k}.mr") for k in ("se", "pe")]
+    out = [str(tmp_path / f"torch_{k}.mr") for k in ("se", "pe")]
+    main_map(["-i", my_index, "-r", se_fastq, *_reads_args(pe_fastq), "-o",
+              ",".join(ref), "--backend", "numpy"])
+    assert tcli.main(["-i", my_index, "-r", se_fastq, *_reads_args(pe_fastq),
+                      "-o", ",".join(out), "--device", "cpu"]) == 0
+    _assert_same(ref[0], out[0], [])
+    _assert_same(ref[1], out[1], [], pe=True)
+
+
 _NO_JAX = r"""
 import importlib, pkgutil, sys
 import walt_tpu_torch
@@ -70,13 +119,15 @@ print("NO_JAX_OK")
 """
 
 
-def test_cli_runs_without_jax(tmp_path, my_index, se_fastq):
+@pytest.mark.parametrize("mode", ["se", "pe"])
+def test_cli_runs_without_jax(tmp_path, my_index, se_fastq, pe_fastq, mode):
     env = {k: v for k, v in os.environ.items() if k != "WALTX_PROFILE_DIR"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = root
     out = str(tmp_path / "sub.mr")
+    reads = ["-r", se_fastq] if mode == "se" else _reads_args(pe_fastq)
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, "-i", my_index, "-r", se_fastq,
+        [sys.executable, "-c", _NO_JAX, "-i", my_index, *reads,
          "-o", out, "--device", "cpu"],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300,
@@ -87,7 +138,6 @@ def test_cli_runs_without_jax(tmp_path, my_index, se_fastq):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["-1", "a.fq", "-2", "b.fq"], "paired-end"),
     (["--tp", "2"], "--tp"),
     (["--multihost"], "--multihost"),
     (["--device", "cuda"], "no CUDA device"),
@@ -100,8 +150,7 @@ def test_cli_rejects_unported(tmp_path, monkeypatch, my_index, se_fastq,
     if extra == ["WALTX_PROFILE_DIR"]:
         monkeypatch.setenv("WALTX_PROFILE_DIR", str(tmp_path / "prof"))
         extra = []
-    args = ["-i", my_index, "-o", str(tmp_path / "o.mr"), *extra]
-    if "-1" not in extra:
-        args += ["-r", se_fastq]
+    args = ["-i", my_index, "-o", str(tmp_path / "o.mr"), "-r", se_fastq,
+            *extra]
     with pytest.raises(SystemExit, match=match):
         tcli.main(args)

@@ -65,3 +65,30 @@ def test_map_single_end_on_card_vs_native(cuda_device):
     assert ok.mean() > 0.75
     for got, want in zip((pos, times, minus, mm), ref):
         np.testing.assert_array_equal(got[ok], want[ok])
+
+
+@pytest.mark.cuda
+def test_map_mate_slabs_on_card_vs_native(cuda_device):
+    """The PE mate step on the card, finalized natively, agrees with the
+    native exact ranking and pair join on every pair the device resolved,
+    and went through the kernel."""
+    from chip_smoke import map_pairs_vs_exact
+    from walt_tpu import native
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.index.build import build_table
+    from walt_tpu.synth import make_genome_repetitive, sample_pairs
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    if native.get_lib() is None:
+        pytest.skip("native library unavailable")
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [[build_table(genome, c, pattern, verbose=False) for c in pair]
+              for pair in (("CT00", "CT01"), ("GA10", "GA11"))]
+    c1, l1, c2, l2 = sample_pairs(genome, 3000, 100, seed=23)
+    backend = TorchBackend(device=cuda_device, small_chunk=1024)
+    share, launches, _, _ = map_pairs_vs_exact(
+        backend, [(c1, l1), (c2, l2)], tables,
+        genome.start_index.astype(np.uint32))
+    assert launches > 0
+    assert share > 0.75

@@ -181,9 +181,9 @@ def test_map_single_end_rungs_vs_native(se_tables, monkeypatch, rung):
     backend = TorchBackend(device="cpu", small_chunk=256)
     pos, times, minus, mm, fb = backend.map_single_end(
         codes, lens, se_tables, 5000, 6, pattern)
-    assert backend.rungs == {"+": "uniq" if rung == "uniq" else
+    assert backend.rungs == {"CT00": "uniq" if rung == "uniq" else
                              "u32 word0" if rung == "word0" else "key16",
-                             "-": backend.rungs["+"]}
+                             "CT01": backend.rungs["CT00"]}
     ref = native.se_exact(codes, lens, se_tables, False, 5000, 6, pattern)
     if ref is None:
         pytest.skip("native library unavailable")

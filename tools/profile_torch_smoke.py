@@ -1,8 +1,8 @@
-"""Stage times and a device profile of walt_tpu_torch's single-end path.
+"""Stage times and a device profile of walt_tpu_torch's SE and PE paths.
 
 Runs on one CUDA GPU, on the data ``chip_smoke.py`` builds (a 128 Mbp
-repetitive genome, its index and 1,000,000 x 100 bp reads, made once under
-``build/smoke_data/``), and prints:
+repetitive genome, its index, 1,000,000 x 100 bp reads and 500,000 x 100 bp
+read pairs, made once under ``build/smoke_data/``), and prints:
 
 - FASTQ parse + 2-bit pack of all reads (host);
 - table setup of the '+' strand table: host prep, upload, uniq run index,
@@ -13,7 +13,11 @@ repetitive genome, its index and 1,000,000 x 100 bp reads, made once under
   union of the device events' intervals), the idle share of the wall, and
   device time by kernel name (the full table goes to ``OUT/``);
 - the CLI end to end with one batch (the default ``-N``) and with 250,000-read
-  batches, twice each in turns.
+  batches, twice each in turns;
+- for the pairs: ``TorchBackend.map_mate_slabs`` on both mates (first call
+  with the four table builds, then steady), one steady pair of calls under
+  ``torch.profiler`` as above, and the PE CLI with one batch and with
+  125,000-pair batches, twice each in turns.
 
 Usage, from the repository root:
 
@@ -50,21 +54,19 @@ def busy_us(intervals) -> float:
 
 def main(out_dir: str) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from walt_tpu.constants import get_pattern
     from walt_tpu.host.fastq import FgetsLines, load_batch
     from walt_tpu.index import io_walt
-    from walt_tpu_torch import cli
     from walt_tpu_torch.core.torch_backend import TorchBackend
     from walt_tpu_torch.ops import device_index as tdi
 
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda", 0)
     print("card:", cs.card_line(), flush=True)
-    idx, fq = cs.build_data(cs.DATA, cs.GENOME_BASES, cs.N_READS,
-                            cs.READ_LEN)
+    idx, fq, pe = cs.build_data(cs.DATA, cs.GENOME_BASES, cs.N_READS,
+                                cs.N_PAIRS, cs.READ_LEN)
     pattern = get_pattern("3")
     gm, _ = io_walt.read_head(idx)
     tables = [io_walt.read_table_cached(idx + s, gm)
@@ -114,10 +116,58 @@ def main(out_dir: str) -> int:
               f"s, fallback {r[4].mean():.4f}", flush=True)
 
     be.reset_adaptive()
+    profiled("map_single_end", lambda: be.map_single_end(
+        codes, lens, tables, 5000, 6, pattern), dev,
+        os.path.join(out_dir, "profile_kernels.txt"))
+    be.free_tables()
+    # end to end through the CLI: one batch (the default -N) against
+    # pipelined 250k-read batches, in turns
+    cli_turns(["-r", fq], codes.shape[0], "reads", (1_000_000, 250_000))
+
+    pe_tables = [[io_walt.read_table_cached(idx + s, gm) for s in pair]
+                 for pair in (("_CT00", "_CT01"), ("_GA10", "_GA11"))]
+    mates = []
+    for f in pe:
+        lines = FgetsLines(f)
+        mates.append(load_batch(lines, 1 << 40).packed())
+        lines.close()
+
+    def map_pairs():
+        return [be.map_mate_slabs(c, n, tabs, ag, 5000, 6, pattern)
+                for (c, n), tabs, ag in zip(mates, pe_tables, (False, True))]
+
+    be = TorchBackend(device=dev)
+    be.table_budget_hint = 4
+    t = time.perf_counter()
+    map_pairs()
+    print(f"map_mate_slabs x 2 mates, first call (builds 4 tables): "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    for rep in range(3):
+        t = time.perf_counter()
+        r = map_pairs()
+        print(f"map_mate_slabs x 2 mates steady {rep}: "
+              f"{time.perf_counter() - t:.3f} s, pair fallback "
+              f"{(r[0][1] | r[1][1]).mean():.4f}", flush=True)
+    profiled("map_mate_slabs x 2 mates", map_pairs, dev,
+             os.path.join(out_dir, "profile_kernels_pe.txt"))
+    be.free_tables()
+    cli_turns(["-1", pe[0], "-2", pe[1]], mates[0][0].shape[0], "pairs",
+              (500_000, 125_000))
+    print("card:", cs.card_line(), flush=True)
+    return 0
+
+
+def profiled(label: str, fn, dev, table_path: str) -> None:
+    """One call of ``fn`` under torch.profiler: wall, device busy time,
+    idle share and device time by kernel name (all rows to
+    ``table_path``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        be.map_single_end(codes, lens, tables, 5000, 6, pattern)
+        fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t
     evs = [e for e in prof.events()
@@ -131,7 +181,7 @@ def main(out_dir: str) -> int:
         n, tt = by_name.get(k, (0, 0))
         by_name[k] = (n + 1, tt + e.time_range.elapsed_us())
     tot = sum(v[1] for v in by_name.values()) or 1
-    print(f"profiled steady map_single_end: wall {wall * 1e3:.1f} ms, device "
+    print(f"profiled steady {label}: wall {wall * 1e3:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms (union of device event intervals), "
           f"first-to-last event span {span / 1e3:.1f} ms, idle share of wall "
           f"{1 - busy / 1e6 / wall:.3f}, {len(evs)} device events",
@@ -140,23 +190,24 @@ def main(out_dir: str) -> int:
             for k, (n, tt) in sorted(by_name.items(),
                                      key=lambda kv: -kv[1][1])]
     print("\n".join(rows[:25]), flush=True)
-    with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+    with open(table_path, "w") as f:
         f.write("\n".join(rows) + "\n")
-    be.free_tables()
 
-    # end to end through the CLI: one batch (the default -N) against
-    # pipelined 250k-read batches, in turns
-    for n_batch in (1_000_000, 250_000, 1_000_000, 250_000):
-        out = os.path.join(cs.DATA, f"cli_{n_batch}.mr")
+
+def cli_turns(reads_args, n: int, unit: str, batches) -> None:
+    """The CLI end to end at each -N of ``batches``, twice, in turns."""
+    import chip_smoke as cs
+    from walt_tpu_torch import cli
+
+    for n_batch in tuple(batches) * 2:
+        out = os.path.join(cs.DATA, f"cli_{unit}_{n_batch}.mr")
         t = time.perf_counter()
-        if cli.main(["-i", idx, "-r", fq, "-o", out, "-N",
-                     str(n_batch)]) != 0:
+        if cli.main(["-i", os.path.join(cs.DATA, "smoke.dbindex"),
+                     *reads_args, "-o", out, "-N", str(n_batch)]) != 0:
             raise AssertionError(f"the CLI run with -N {n_batch} failed")
         w = time.perf_counter() - t
-        print(f"CLI -N {n_batch}: {w:.3f} s wall, "
-              f"{codes.shape[0] / w:.1f} reads/s", flush=True)
-    print("card:", cs.card_line(), flush=True)
-    return 0
+        print(f"CLI {unit} -N {n_batch}: {w:.3f} s wall, "
+              f"{n / w:.1f} {unit}/s", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 
 The flag surface is ``walt_tpu.cli``'s (WALT's flags and validation,
 walt.cpp:130-246), reused by import, with ``--backend {torch,numpy}`` in
-place of ``{jax,numpy}`` and ``--device {cuda,cpu}``.  Single-end runs go
-through ``walt_tpu.core.single_end.process_single_end``.  Paired-end input,
+place of ``{jax,numpy}`` and ``--device {cuda,cpu}``.  Single-end files
+(``-r``) go through ``walt_tpu.core.single_end.process_single_end``, then
+paired-end files (``-1``/``-2``) through
+``walt_tpu.core.paired_end.process_paired_end``, all on one backend.
 ``--tp``, ``--multihost`` and ``WALTX_PROFILE_DIR`` (walt_tpu's JAX profiler
 hook) are not ported yet and are rejected.
 """
@@ -47,9 +49,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     _validate_index(args.index)
 
-    if args.reads1 or args.reads2:
-        raise SystemExit("paired-end mapping is not yet ported to "
-                         "walt_tpu_torch")
     if args.tp != 1:
         raise SystemExit("--tp is not yet ported to walt_tpu_torch")
     if args.multihost:
@@ -59,14 +58,19 @@ def main(argv=None) -> int:
         raise SystemExit("WALTX_PROFILE_DIR is walt_tpu's JAX profiler hook; "
                          "unset it for walt_tpu_torch")
     se_files = _split_filenames(args.reads)
-    for f in se_files:
+    pe1 = _split_filenames(args.reads1)
+    pe2 = _split_filenames(args.reads2)
+    if len(pe1) != len(pe2):
+        raise SystemExit("unequal number of end1 and end2 files")
+    for f in se_files + pe1 + pe2:
         if not f.endswith(FASTQ_SUFFIXES):
             raise SystemExit(f"read file invalid suffix: {f}")
     outputs = _split_filenames(args.output)
-    if len(outputs) != 1 and len(outputs) != len(se_files):
+    n_runs = len(se_files) + len(pe1)
+    if len(outputs) != 1 and len(outputs) != n_runs:
         raise SystemExit(f"wrong number of output files: {args.output}")
     if len(outputs) == 1:
-        outputs = outputs * len(se_files)
+        outputs = outputs * n_runs
     if args.batch > MAX_BATCH:
         raise SystemExit(f"batch size may not exceed {MAX_BATCH}")
     if not (2 <= args.top_k <= 300):
@@ -84,8 +88,8 @@ def main(argv=None) -> int:
         backend = get_backend("numpy")
 
     # clear output files so later appends make sense (walt.cpp:229-233);
-    # under --resume process_single_end restores/truncates from its
-    # checkpoints
+    # under --resume process_single_end / process_paired_end restore or
+    # truncate from their checkpoints
     shared_output = len(set(outputs)) != len(outputs)
     if not args.resume:
         for out in outputs:
@@ -103,21 +107,30 @@ def main(argv=None) -> int:
 
         replay.set_host_threads(args.threads)
 
+    from walt_tpu.core.paired_end import process_paired_end
     from walt_tpu.core.single_end import process_single_end
 
-    for oi, (f, out) in enumerate(zip(se_files, outputs)):
+    runs = [(f, None) for f in se_files] + list(zip(pe1, pe2))
+    for oi, ((f1, f2), out) in enumerate(zip(runs, outputs)):
         # per-file reset: file N's phase schedule must not depend on N-1
         if hasattr(backend, "reset_adaptive"):
             backend.reset_adaptive()
-        process_single_end(
-            args.index, f, out, batch_size=args.batch,
-            max_mismatches=args.mismatch, b=args.bucket, adaptor=args.adaptor,
-            ag_wildcard=args.ag_wildcard or args.pbat,
-            ambiguous=args.ambiguous, unmapped=args.unmapped, sam=args.sam,
-            backend=backend, pattern_name=args.seed_pattern,
-            verbose=args.verbose, resume=args.resume,
+        common = dict(
+            batch_size=args.batch, max_mismatches=args.mismatch,
+            b=args.bucket, adaptor=args.adaptor, ambiguous=args.ambiguous,
+            unmapped=args.unmapped, sam=args.sam, backend=backend,
+            pattern_name=args.seed_pattern, verbose=args.verbose,
+            resume=args.resume,
             ckpt_tag=f".run{oi}" if (args.resume and shared_output) else "",
         )
+        if f2 is None:
+            process_single_end(args.index, f1, out,
+                               ag_wildcard=args.ag_wildcard or args.pbat,
+                               **common)
+        else:
+            process_paired_end(args.index, f1, f2, out, top_k=args.top_k,
+                               frag_range=args.fraglen, pbat=args.pbat,
+                               **common)
     return 0
 
 

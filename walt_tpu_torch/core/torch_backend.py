@@ -7,17 +7,21 @@ short ladder of chunk shapes, launches every chunk and then fetches the
 results, so host-to-device copies and compute overlap.
 
 For single-end mapping the whole BestMatch fold runs on the device
-(``ops/se_fold``) and only (B, 3) results come back.  Reads whose candidates
-do not fit the fixed shapes (or touch flagged buckets) are flagged for the
-exact host path -- output is identical either way.
+(``ops/se_fold``) and only (B, 3) results come back.  For paired-end
+mapping each mate runs as one fused both-strand step (``ops/pe_map``) whose
+flat candidate stream is decoded on the host into the per-strand slabs
+``native.pe_finalize`` takes.  Reads whose candidates do not fit the fixed
+shapes (or touch flagged buckets) are flagged for the exact host path --
+output is identical either way.
 
 Every tensor is created on the backend's explicit ``device``:
-``process_single_end`` calls :meth:`TorchBackend.map_single_end` from a
+``process_single_end`` and ``process_paired_end`` call the backend from a
 worker thread, and the current CUDA device is per thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -28,11 +32,16 @@ from walt_tpu.core import refmap
 from walt_tpu.core.errors import HbmBudgetError
 from walt_tpu.genome import Genome
 from walt_tpu.index.build import HashTable
-from walt_tpu_torch.ops import device_index, packing, pipeline, se_fold
+from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
 
 
 #: padded read length granularity: one packed 16-base word
 LEN_PAD = 16
+
+#: index-file suffix of each table, by (A/G wildcard reads, table strand);
+#: the keys of :attr:`TorchBackend.rungs`
+TABLE_NAMES = {(False, "+"): "CT00", (False, "-"): "CT01",
+               (True, "+"): "GA10", (True, "-"): "GA11"}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -41,6 +50,18 @@ def _round_up(x: int, m: int) -> int:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def _oom_as_budget_error():
+    """Raise a device out-of-memory error as HbmBudgetError, which
+    process_single_end and process_paired_end answer by mapping the batch
+    on the exact host path."""
+    try:
+        yield
+    except torch.cuda.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        raise HbmBudgetError(f"device out of memory: {e}") from e
 
 
 class TorchBackend:
@@ -77,12 +98,14 @@ class TorchBackend:
         #: pin the (genome, table) objects so the id()-based key stays valid.
         self._failed_tables = {}
         #: how many tables the current run keeps resident (process_single_end
-        #: sets 2); the budget is split evenly across tables not yet built
+        #: sets 2, process_paired_end 4); the budget is split evenly across
+        #: tables not yet built
         self.table_budget_hint = 0
         self.fallback_reads = 0
         self.total_reads = 0
         #: the key-structure rung each built table took ("uniq", "key16",
-        #: "u32 word0" or "3-word"), by strand, for reports
+        #: "u32 word0" or "3-word"), by table name (:data:`TABLE_NAMES`),
+        #: for reports
         self.rungs = {}
         self.reset_adaptive()
 
@@ -100,11 +123,16 @@ class TorchBackend:
     # ---- tables ----------------------------------------------------------
     def _device_table(self, genome: Genome, table: HashTable,
                       pattern: SeedPattern, n_key_words: int = 1,
-                      wide_kw: bool = False):
+                      wide_kw: bool = False, ag_wildcard: bool = False):
         """Cached resident table.  ``n_key_words``: packed key words the run
         needs (3 for -b below the verify slabs; an existing 1-word table is
         then rebuilt).  ``wide_kw``: prefer the u32 word-0 rung over key16
-        when uniq does not fit."""
+        when uniq does not fit (the PE paths: PE keeps every candidate
+        <= -m, and key16's coarser run groups overflow its slab far more
+        often); a key16 entry built without it is then rebuilt, so a PE run
+        after an SE run in one process takes the wide rung and still holds
+        one copy of each table.  ``ag_wildcard`` names the table in
+        :attr:`rungs`."""
         # the entry holds strong references to (genome, table): the id()
         # key is only unambiguous while those objects are alive
         key = (id(genome), id(table), pattern.name)
@@ -112,8 +140,11 @@ class TorchBackend:
         if got is not None:
             kw_arr = got[1]["key_words"]
             stored = kw_arr.shape[-1] if kw_arr.dim() == 2 else 1
-            if stored < n_key_words:
-                del self._tables[key]  # rebuild with the deeper key words
+            key16_not_wide = (wide_kw and not got[4]
+                              and kw_arr.dtype == torch.int16)
+            if stored < n_key_words or key16_not_wide:
+                # rebuild with deeper or wider key words
+                del self._tables[key]
         if key not in self._tables:
             if key in self._failed_tables:
                 raise HbmBudgetError(
@@ -121,12 +152,13 @@ class TorchBackend:
                 )
             try:
                 dt, dev = self._build_single_device_table(
-                    genome, table, pattern, n_key_words, wide_kw=wide_kw
+                    genome, table, pattern, n_key_words, wide_kw=wide_kw,
+                    name=TABLE_NAMES[ag_wildcard, genome.strand],
                 )
             except HbmBudgetError:
                 self._failed_tables[key] = (genome, table)
                 raise
-            self._tables[key] = (dt, dev, genome, table)
+            self._tables[key] = (dt, dev, genome, table, wide_kw)
         return self._tables[key][:2]
 
     def free_tables(self):
@@ -148,7 +180,7 @@ class TorchBackend:
 
     def _build_single_device_table(self, genome: Genome, table: HashTable,
                                    pattern: SeedPattern, n_key_words: int,
-                                   wide_kw: bool = False):
+                                   wide_kw: bool, name: str):
         """Place one table within the memory budget, degrading gracefully.
 
         Ladder: full table + uniq run index -> full table + one key-word
@@ -269,7 +301,7 @@ class TorchBackend:
         else:
             dev["key_words"] = torch.zeros((1, 1), dtype=torch.int32,
                                            device=self.device)
-        self.rungs[genome.strand] = label
+        self.rungs[name] = label
         return dt, dev
 
     # ---- batching --------------------------------------------------------
@@ -320,13 +352,21 @@ class TorchBackend:
                    torch.from_numpy(pl).to(self.device))
             a = z
 
-    def _fetch(self, tensors):
-        """Copy device results to host numpy: start every copy, then one
-        synchronize."""
-        host = [t.to("cpu", non_blocking=True) for t in tensors]
+    @staticmethod
+    def _to_host(tensors):
+        """Start the device-to-host copies of ``tensors``; do not wait."""
+        return [t.to("cpu", non_blocking=True) for t in tensors]
+
+    def _wait(self, host):
+        """One synchronize, then the copies of :meth:`_to_host` as numpy."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return [h.numpy() for h in host]
+
+    def _fetch(self, tensors):
+        """Copy device results to host numpy: start every copy, then one
+        synchronize."""
+        return self._wait(self._to_host(tensors))
 
     # ---- single-end ------------------------------------------------------
     def map_single_end(self, codes: np.ndarray, lens: np.ndarray, tables,
@@ -340,12 +380,9 @@ class TorchBackend:
         error is raised as HbmBudgetError, which process_single_end answers by
         mapping the batch on the exact host path.
         """
-        try:
+        with _oom_as_budget_error():
             return self._map_single_end(codes, lens, tables, b,
                                         max_mismatches, pattern, ag_wildcard)
-        except torch.cuda.OutOfMemoryError as e:
-            torch.cuda.empty_cache()
-            raise HbmBudgetError(f"device out of memory: {e}") from e
 
     def _map_single_end(self, codes, lens, tables, b, max_mismatches,
                         pattern, ag_wildcard):
@@ -353,7 +390,8 @@ class TorchBackend:
         devs, bits, ubits = [], [], []
         nkw = self._needed_key_words(b)
         for g, ht in tables:
-            dt, dev = self._device_table(g, ht, pattern, nkw)
+            dt, dev = self._device_table(g, ht, pattern, nkw,
+                                         ag_wildcard=ag_wildcard)
             devs.append(dev)
             bits.append(dt.max_bucket_bits)
             ubits.append(dt.uniq_bits)
@@ -434,6 +472,110 @@ class TorchBackend:
         self.fallback_reads += int(out[4].sum())
         return out
 
+    # ---- paired-end mate step ----------------------------------------------
+    def map_mate_slabs_begin(self, codes: np.ndarray, lens: np.ndarray,
+                             tables, ag_wildcard: bool, b: int,
+                             max_mismatches: int, pattern: SeedPattern):
+        """Launch one mate's fused both-strand step over every chunk and
+        start the copies of its flat results to the host; do not wait.
+
+        Returns a handle for :meth:`map_mate_slabs_finish`:
+        process_paired_end launches both mates before it waits for either.
+        A device out-of-memory error is raised as HbmBudgetError.
+        """
+        with _oom_as_budget_error():
+            devs, bits, ubits = [], [], []
+            nkw = self._needed_key_words(b)
+            for g, ht in tables:
+                dt, dev = self._device_table(g, ht, pattern, nkw, wide_kw=True,
+                                             ag_wildcard=ag_wildcard)
+                devs.append(dev)
+                bits.append(dt.max_bucket_bits)
+                ubits.append(dt.uniq_bits)
+            spans, results = [], []
+            for a, z, pc, pl in self._chunks(codes, lens, pattern):
+                results.extend(pe_map.map_mate_device(
+                    pc, pl, b, max_mismatches, tuple(devs),
+                    pattern_name=pattern.name, ag_wildcard=ag_wildcard,
+                    search_bits=tuple(bits), verify_slab=pe_map.VERIFY_SLAB,
+                    cand_slab=self.cand_slab, wl_factor=pe_map.WL_FACTOR,
+                    exact_b=b < pe_map.VERIFY_SLAB,
+                    flat_factor=pe_map.FLAT_FACTOR, uniq_bits=tuple(ubits),
+                    full_mask=self._full_mask(lens[a:z], pattern),
+                ))
+                spans.append((a, z))
+            return codes.shape[0], spans, self._to_host(results)
+
+    def map_mate_slabs_finish(self, handle):
+        """Wait for a :meth:`map_mate_slabs_begin` handle (one synchronize)
+        and decode its flat streams.
+
+        Reads that overflowed a slab or spilled the flat stream are flagged
+        and go to the native host replay, which process_paired_end runs
+        concurrently with the next batch's device work (the JAX package's
+        single-device policy; see ``PERF.md`` section 7).
+        """
+        n, spans, host = handle
+        with _oom_as_budget_error():
+            host = self._wait(host)
+        streams, fallback = self._decode_mate(spans, host, n)
+        self.total_reads += n
+        self.fallback_reads += int(fallback.sum())
+        return streams, fallback
+
+    def _decode_mate(self, spans, host, n: int):
+        """Flat (meta, flat) chunk results -> per-strand slab streams.
+
+        ``host``: meta (B,) and flat (M, 2) per chunk of ``spans``.  Returns
+        ([dict(seed, pos, mm, cnt)] for strand '+' then '-', fallback (n,)
+        bool); slabs are (n, cand_slab), C-contiguous, as
+        ``native.pe_finalize`` takes them.
+        """
+        C = self.cand_slab
+        streams = [dict(seed=np.zeros((n, C), dtype=np.int8),
+                        pos=np.zeros((n, C), dtype=np.uint32),
+                        mm=np.zeros((n, C), dtype=np.int32),
+                        cnt=np.zeros(n, dtype=np.int32))
+                   for _ in range(2)]
+        fallback = np.zeros(n, dtype=bool)
+        for i, (a, z) in enumerate(spans):
+            meta = host[2 * i][: z - a].astype(np.int64)
+            flat = host[2 * i + 1].view(np.uint32)
+            cnt0 = meta & 0xFF
+            cnt1 = (meta >> 8) & 0xFF
+            fallback[a:z] = (meta >> 16) & 1
+            streams[0]["cnt"][a:z] = cnt0
+            streams[1]["cnt"][a:z] = cnt1
+            total = cnt0 + cnt1
+            m = int(total.sum())  # <= M: spilled reads carry no count
+            if not m:
+                continue
+            rid = np.repeat(np.arange(z - a), total)
+            within = np.arange(m) - (np.cumsum(total) - total)[rid]
+            w1 = flat[:m, 1]
+            strand = (w1 >> 1) & 1
+            col = np.where(strand == 0, within, within - cnt0[rid])
+            for s, st in enumerate(streams):
+                sel = strand == s
+                r, c = rid[sel] + a, col[sel]
+                st["seed"][r, c] = ((w1[sel] >> 2) & 0x3F).astype(np.int8)
+                st["pos"][r, c] = flat[:m, 0][sel]
+                st["mm"][r, c] = (w1[sel] >> 8).astype(np.int32)
+        return streams, fallback
+
+    def map_mate_slabs(self, codes: np.ndarray, lens: np.ndarray, tables,
+                       ag_wildcard: bool, b: int, max_mismatches: int,
+                       pattern: SeedPattern):
+        """One mate against both strand tables, fused (``ops/pe_map``).
+
+        ``tables``: [(genome, hash_table), (genome, hash_table)], '+' first.
+        Returns ([dict(seed, pos, mm, cnt)] per strand, fallback (n,) bool).
+        Flagged reads (slab overflow or flat spill) carry no usable slab
+        entries; process_paired_end maps them on the exact host path.
+        """
+        return self.map_mate_slabs_finish(self.map_mate_slabs_begin(
+            codes, lens, tables, ag_wildcard, b, max_mismatches, pattern))
+
     # ---- per-strand candidate streams --------------------------------------
     def map_strand_slabs(self, codes: np.ndarray, lens: np.ndarray,
                          genome: Genome, table: HashTable, ag_wildcard: bool,
@@ -441,11 +583,20 @@ class TorchBackend:
         """Candidate slabs for a batch against one table, slab-tiered.
 
         Returns (cand_seed (n,C) int8, cand_pos (n,C) uint32,
-        cand_mm (n,C) int32, cand_cnt (n,) int32, fallback (n,) bool).
+        cand_mm (n,C) int32, cand_cnt (n,) int32, fallback (n,) bool).  A
+        device out-of-memory error is raised as HbmBudgetError.
         """
+        with _oom_as_budget_error():
+            return self._map_strand_slabs(codes, lens, genome, table,
+                                          ag_wildcard, b, max_mismatches,
+                                          pattern)
+
+    def _map_strand_slabs(self, codes, lens, genome, table, ag_wildcard, b,
+                          max_mismatches, pattern):
         n = codes.shape[0]
         dt, dev = self._device_table(genome, table, pattern,
-                                     self._needed_key_words(b), wide_kw=True)
+                                     self._needed_key_words(b), wide_kw=True,
+                                     ag_wildcard=ag_wildcard)
         C = self.cand_slab
 
         def run(codes_, lens_, slab, chunk=None,

@@ -14,7 +14,9 @@ One call maps a fixed-shape read batch against one table:
    candidate-verify kernel (``ops/verify``), with the pattern-typo
    corrections and the window cared check;
 5. ordered compaction of candidates with mismatch <= -m into a fixed slab,
-   preserving (seed asc, bucket position asc) examination order.
+   preserving (seed asc, bucket position asc) examination order -- or, with
+   ``emit_wl``, the worklist itself with each kept row's slab column, for
+   the paired-end flat emission (``ops/pe_map``).
 
 A read whose run might extend past the slab, whose survivors spill the
 worklist, or that touches a flagged bucket raises ``fallback`` and is
@@ -26,8 +28,8 @@ where the JAX code relies on u32 wraparound.  JAX's clamped gathers
 (``mode="clip"``) are explicit clamps, and its dropped scatters
 (``mode="drop"``) scatter into one spare slot that is sliced off.
 
-Not ported yet: ``key_base``/``tp_route`` (multi-GPU table sharding),
-``emit_wl`` (paired-end) and ``stage_out`` (the XLA stage profiler).
+Not ported yet: ``key_base``/``tp_route`` (multi-GPU table sharding) and
+``stage_out`` (the XLA stage profiler).
 """
 
 from __future__ import annotations
@@ -102,7 +104,8 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
                     cand_slab: int = CAND_SLAB, seeds: tuple | None = None,
                     wl_factor: float = WL_FACTOR, exact_b: bool = False,
                     uniq_words=None, uniq_off=None, uniq_counter=None,
-                    uniq_bits: int = 0, full_mask: bool = False):
+                    uniq_bits: int = 0, full_mask: bool = False,
+                    emit_wl: bool = False):
     """Map a read batch against one table.
 
     preads: (B, W) int32 packed read codes (u32 bits); lens: (B,) int32;
@@ -124,6 +127,11 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     ``full_mask``: promise that every real read compares a full first key
     word (seed_len >= key_weight + 16), so the refined run is one word-0 run
     and needs no upper-bound probe chain.
+
+    ``emit_wl``: skip the slab compaction and return the worklist stream
+    ``((wl_read, col, pos, mm, shift, keep), cand_cnt, fallback)``: (M,)
+    int64 rows (``keep`` bool), where ``col`` is a kept row's rank among
+    its read's kept rows (its slab column; ``cand_slab`` on dropped rows).
     """
     pattern = get_pattern(pattern_name)
     plen = pattern.pattern_len
@@ -378,18 +386,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         0, wl_read, keep64)
     base = torch.cumsum(cnt, 0) - cnt  # kept entries before each read
     rank = torch.cumsum(keep64, 0) - 1
-    dest = rank - base[wl_read]
-    # dropped rows and ranks past the slab land in the spare column
-    dest = torch.where(wl_keep & (dest < cand_slab), dest, cand_slab)
-
-    def compact(vals, fill, dtype):
-        out = torch.full((B, cand_slab + 1), fill, dtype=dtype, device=dev)
-        out[wl_read, dest] = vals.to(dtype)
-        return out[:, :cand_slab]
-
-    cand_seed = compact(wl_shift, -1, torch.int8)
-    cand_pos = compact(wl_gpos, 0, torch.int64)
-    cand_mm = compact(mm, 0, torch.int32)
+    col = torch.where(wl_keep, rank - base[wl_read], cand_slab)
 
     fallback = (
         (overflow.any(1)
@@ -402,5 +399,20 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         | (cnt > cand_slab)
         | wl_spill
     )
-    return (cand_seed, cand_pos, cand_mm,
-            torch.clamp(cnt, max=cand_slab).to(torch.int32), fallback)
+    cand_cnt = torch.clamp(cnt, max=cand_slab).to(torch.int32)
+    if emit_wl:
+        wl = (wl_read, col, wl_gpos, mm, wl_shift, wl_keep)
+        return wl, cand_cnt, fallback
+
+    # dropped rows and ranks past the slab land in the spare column
+    dest = torch.clamp(col, max=cand_slab)
+
+    def compact(vals, fill, dtype):
+        out = torch.full((B, cand_slab + 1), fill, dtype=dtype, device=dev)
+        out[wl_read, dest] = vals.to(dtype)
+        return out[:, :cand_slab]
+
+    cand_seed = compact(wl_shift, -1, torch.int8)
+    cand_pos = compact(wl_gpos, 0, torch.int64)
+    cand_mm = compact(mm, 0, torch.int32)
+    return cand_seed, cand_pos, cand_mm, cand_cnt, fallback

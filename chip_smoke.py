@@ -31,10 +31,32 @@ Phases, one line of output each (any failure raises and exits non-zero):
    run) writes MR output and .mapstats byte-identical to the exact host
    path.
 
+Phases 9-12 run the multi-device path on a (dp, tp) mesh, every table
+split tp=2 by bucket range: over all cards when there are two or more,
+else a virtual dp=2 x tp=2 mesh over the one card (four shards' worth of
+work on one card: it shows correctness and overhead, not scaling).  They
+use the first 250,000 reads and 125,000 pairs of phase 4's data:
+
+9. mesh SE parity: TorchBackend(mesh).map_single_end == native.se_exact on
+   every read it resolved, with a device-resolved share of at least 75%,
+   and == the single-device backend wherever neither side fell back; both
+   timed on the same reads (first call with table setup, then steady calls
+   in turns), and one more steady mesh call timed pass by pass (phase A,
+   phase B, each slab tier);
+10. mesh PE parity: the same for map_mate_slabs, finalized by
+    native.pe_finalize against the exact ranking and pair join, with a
+    pair share of at least 65% (see MIN_MESH_PE_SHARE);
+11. mesh end to end: process_single_end and process_paired_end on the mesh
+    backend write MR and .mapstats byte-identical to the exact host path
+    (with two or more cards, the CLI's --tp 2 as well);
+12. entry.dryrun_multichip(4): the dry run on four devices (the first card
+    four times when there are fewer).
+
 The last two lines are one JSON object describing the kernels (``ms`` and
 ``plain_ms`` are device time per call, ``wall_ms`` and ``plain_wall_ms``
 wall time per call; ``launches`` and ``launches_pe`` count the launches of
-the timed SE and PE CLI runs) and one JSON object
+the timed SE and PE CLI runs, ``launches_mesh`` and ``launches_mesh_pe``
+those of phase 11's SE and PE runs) and one JSON object
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,6 +82,16 @@ MAIN_M, MAIN_W = 196_608, 7
 #: the PE mate step's verify shape: worklist factor 3 x the 131,072-read
 #: chunk
 PE_M = 393_216
+#: reads and pairs of the mesh phases 9-11 (the first of phase 4's)
+N_MESH_READS = 250_000
+N_MESH_PAIRS = 125_000
+#: pair share the tp=2 mesh must resolve on the device.  Lower than
+#: MIN_DEVICE_SHARE: a converted read has three bases, so one of two
+#: bucket-range shards owns about 2/3 of its (read, seed) pairs, while the
+#: routed row capacity (walt_tpu's int(1.25 * pairs / T) + 128, kept so the
+#: port equals walt_tpu exactly) holds 5/8; the reads past it fall back, and
+#: the PE step has no device tiers to take them (0.6849 measured on an H100)
+MIN_MESH_PE_SHARE = 0.65
 
 
 def say(phase: str, msg: str) -> None:
@@ -519,6 +551,322 @@ def pe_end_to_end(index: str, pe, device, n_pairs: int):
     return launches, wall
 
 
+def smoke_mesh():
+    """Phases 9-12's mesh: tp=2 over every card (an even count) when there
+    are two or more, else a virtual dp=2 x tp=2 mesh over card 0.  Returns
+    (mesh, virtual)."""
+    import torch
+
+    from walt_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh([torch.device("cuda", i)
+                          for i in range(n - n % 2)], tp=2), False
+    return make_mesh([torch.device("cuda", 0)] * 4, tp=2), True
+
+
+def head_fastq(src: str, dst: str, n_records: int) -> str:
+    """The first ``n_records`` FASTQ records of ``src`` in ``dst``, written
+    once (through a temporary file, so a cut run leaves no partial one)."""
+    if not os.path.exists(dst):
+        tmp = dst + ".tmp"
+        with open(src) as f, open(tmp, "w") as g:
+            for i, line in enumerate(f):
+                if i >= 4 * n_records:
+                    break
+                g.write(line)
+        os.replace(tmp, dst)
+    return dst
+
+
+def load_reads(fastq: str, n: int):
+    """(codes, lens) of the first ``n`` reads of ``fastq``."""
+    from walt_tpu.host.fastq import FgetsLines, load_batch
+
+    lines = FgetsLines(fastq)
+    try:
+        return load_batch(lines, n).packed()
+    finally:
+        lines.close()
+
+
+def timed(fn):
+    """(fn(), wall seconds); the backends return host arrays, so their
+    calls end synchronized."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def peak_gib(devices, reset: bool = False) -> float:
+    """Largest peak allocated memory over ``devices`` in GiB (or reset the
+    peaks)."""
+    import torch
+
+    devices = [d for d in devices if d.type == "cuda"]
+    if reset:
+        for d in devices:
+            # a card nothing has allocated on yet has no allocator stats
+            torch.zeros(1, device=d)
+            torch.cuda.reset_peak_memory_stats(d)
+        return 0.0
+    return max((torch.cuda.max_memory_allocated(d) for d in devices),
+               default=0) / 2**30
+
+
+def in_turns(calls: dict, order=("single", "mesh", "mesh", "single")):
+    """Run ``calls[name]()`` in ``order``, each after the backend's
+    adaptive state is reset; returns ({name: [seconds]}, {name: last
+    result})."""
+    secs, last = {k: [] for k in calls}, {}
+    for name in order:
+        last[name], t = timed(calls[name])
+        secs[name].append(t)
+    return secs, last
+
+
+def fmt_secs(secs: dict) -> str:
+    return ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)} s"
+                     for k, v in secs.items())
+
+
+def tier_breakdown(backend, call) -> str:
+    """One ``call()`` of ``backend.map_single_end``, split by the backend's
+    passes (phase A, phase B, the slab tiers): per pass its reads, chunk
+    count, verify slab, verify launches and wall seconds (first launch to
+    the end of its fetch)."""
+    from walt_tpu_torch.core import torch_backend
+    from walt_tpu_torch.ops import verify
+
+    passes = []
+    real_chunks, real_fetch = backend._chunks, backend._fetch
+    real_step = torch_backend.sharded.map_single_end_sharded
+
+    def chunks(codes, lens, pattern, chunk=None):
+        passes.append(dict(reads=codes.shape[0], chunks=0,
+                           launches=verify.launches,
+                           t0=time.perf_counter()))
+        return real_chunks(codes, lens, pattern, chunk)
+
+    def step(*a, **kw):
+        passes[-1]["chunks"] += 1
+        passes[-1]["slab"] = kw["verify_slab"]
+        return real_step(*a, **kw)
+
+    def fetch(tensors):
+        out = real_fetch(tensors)
+        p = passes[-1]
+        p["secs"] = time.perf_counter() - p["t0"]
+        p["launches"] = verify.launches - p["launches"]
+        return out
+
+    backend._chunks, backend._fetch = chunks, fetch
+    torch_backend.sharded.map_single_end_sharded = step
+    try:
+        call()
+    finally:
+        del backend._chunks, backend._fetch
+        torch_backend.sharded.map_single_end_sharded = real_step
+    return "; ".join(
+        f"{p['reads']} reads in {p['chunks']} chunks, slab {p['slab']}, "
+        f"{p['launches']} launches, {p['secs']:.3f} s" for p in passes)
+
+
+def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
+                   min_share: float):
+    """Phase 9 (``device``: the single-device backend's).  Returns (mesh
+    backend, single-device backend)."""
+    from walt_tpu import native
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.index import io_walt
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.ops import verify
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(index)
+    tables = [io_walt.read_table_cached(index + s, gm)
+              for s in ("_CT00", "_CT01")]
+    codes, lens = load_reads(fastq, n_reads)
+    if codes.shape[0] != n_reads:
+        raise AssertionError(f"{codes.shape[0]} reads loaded, not {n_reads}")
+    mesh_b = TorchBackend(mesh=mesh)
+    single = TorchBackend(device=device)
+    devices = list(dict.fromkeys(mesh.distinct() + [single.device]))
+    peak_gib(devices, reset=True)
+    verify.launches = 0
+    (pos, times, minus, mm, fb), t_mesh = timed(lambda: mesh_b.map_single_end(
+        codes, lens, tables, 5000, 6, pattern))
+    launches = verify.launches
+    peak = peak_gib(devices)
+    s_out, t_single = timed(lambda: single.map_single_end(
+        codes, lens, tables, 5000, 6, pattern))
+
+    def steady(b):
+        b.reset_adaptive()
+        return b.map_single_end(codes, lens, tables, 5000, 6, pattern)
+
+    secs, _ = in_turns({"single": lambda: steady(single),
+                        "mesh": lambda: steady(mesh_b)})
+    passes = tier_breakdown(mesh_b, lambda: steady(mesh_b))
+    ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
+    if ref is None:
+        raise RuntimeError("the native exact replay library is unavailable")
+    ok = ~fb
+    both = ok & ~s_out[4]
+    for name, got, want, one in zip(("pos", "times", "minus", "mm"),
+                                    (pos, times, minus, mm), ref, s_out):
+        if (got[ok] != want[ok]).any():
+            raise AssertionError(f"mesh {name} != native exact replay")
+        if (got[both] != one[both]).any():
+            raise AssertionError(f"mesh {name} != single-device backend")
+    share, s_share = float(ok.mean()), float((~s_out[4]).mean())
+    if launches <= 0:
+        raise AssertionError("the mesh SE step never launched the kernel")
+    if share < min_share:
+        raise AssertionError(f"mesh device-resolved share {share:.4f} < "
+                             f"{min_share}")
+    say("mesh parity", f"{n_reads} reads on {mesh}: device-resolved share "
+                       f"{share:.4f} (single device {s_share:.4f}), equal to "
+                       f"native.se_exact on all of them and to the single "
+                       f"device where neither fell back; rungs "
+                       f"{mesh_b.rungs}; verify launches {launches}; first "
+                       f"map_single_end (tables included) mesh "
+                       f"{t_mesh:.3f} s, single {t_single:.3f} s; steady: "
+                       f"{fmt_secs(secs)}; peak device memory {peak:.2f} GiB "
+                       f"(mesh tables and working set); one more steady mesh "
+                       f"call by pass: {passes}")
+    return mesh_b, single
+
+
+def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
+                   min_share: float):
+    """Phase 10."""
+    import numpy as np
+
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.index import io_walt
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(index)
+    tables = [[io_walt.read_table_cached(index + s, gm) for s in pair]
+              for pair in (("_CT00", "_CT01"), ("_GA10", "_GA11"))]
+    mates = [load_reads(fq, n_pairs) for fq in pe]
+    devices = list(dict.fromkeys(mesh_b.mesh.distinct() + [single.device]))
+    peak_gib(devices, reset=True)
+    share, launches, t_map, t_exact = map_pairs_vs_exact(
+        mesh_b, mates, tables, gm.start_index.astype(np.uint32))
+    peak = peak_gib(devices)
+
+    def both_mates(b):
+        return [b.map_mate_slabs(c, n, t, ag, 5000, 6, pattern)
+                for (c, n), t, ag in zip(mates, tables, (False, True))]
+
+    _, t_single = timed(lambda: both_mates(single))
+    secs, last = in_turns({"single": lambda: both_mates(single),
+                           "mesh": lambda: both_mates(mesh_b)})
+    s_fb = np.zeros(n_pairs, bool)
+    for (ms, mfb), (ss, sfb) in zip(last["mesh"], last["single"]):
+        ok = ~(mfb | sfb)
+        for st, sst in zip(ms, ss):
+            for k in ("cnt", "seed", "pos", "mm"):
+                if (st[k][ok] != sst[k][ok]).any():
+                    raise AssertionError(f"mesh PE {k} != single device")
+        s_fb |= sfb
+    if launches <= 0:
+        raise AssertionError("the mesh PE step never launched the kernel")
+    if share < min_share:
+        raise AssertionError(f"mesh device-resolved pair share {share:.4f} "
+                             f"< {min_share}")
+    say("mesh pe parity", f"{n_pairs} pairs: device-resolved pair share "
+                          f"{share:.4f} (single device "
+                          f"{float((~s_fb).mean()):.4f}), finalized pairs "
+                          f"equal to the exact path on all of them and "
+                          f"streams equal to the single device where "
+                          f"neither fell back; rungs {mesh_b.rungs}; verify "
+                          f"launches {launches}; first map_mate_slabs (both "
+                          f"mates, GA tables included) mesh {t_map:.3f} s, "
+                          f"single {t_single:.3f} s; steady: "
+                          f"{fmt_secs(secs)}; exact ranking + join "
+                          f"{t_exact:.2f} s; peak device memory "
+                          f"{peak:.2f} GiB")
+    single.free_tables()
+
+
+def same_bytes(out: str, ref: str, what: str) -> None:
+    for suffix in ("", ".mapstats"):
+        with open(out + suffix, "rb") as a, open(ref + suffix, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{what} output{suffix or ' (MR)'} "
+                                     f"differs from the exact host path")
+
+
+def fresh(*paths: str) -> None:
+    for p in paths:
+        open(p, "w").close()
+        open(p + ".mapstats", "w").close()
+
+
+def mesh_end_to_end(index, se_sub, pe_sub, mesh_b, virtual: bool,
+                    n_reads: int, n_pairs: int):
+    """Phase 11.  Returns (SE launches, PE launches)."""
+    from walt_tpu.core.paired_end import process_paired_end
+    from walt_tpu.core.single_end import process_single_end
+    from walt_tpu_torch import cli
+    from walt_tpu_torch.ops import verify
+
+    work = os.path.dirname(index)
+    ref, out = (os.path.join(work, f) for f in ("mesh_exact.mr", "mesh.mr"))
+    ref_pe, out_pe = (os.path.join(work, f)
+                      for f in ("mesh_exact_pe.mr", "mesh_pe.mr"))
+    fresh(ref, out, ref_pe, out_pe)
+    process_single_end(index, se_sub, ref, backend=AllFallback())
+    process_paired_end(index, pe_sub[0], pe_sub[1], ref_pe,
+                       backend=AllFallbackPE())
+    mesh_b.reset_adaptive()
+    verify.launches = 0
+    _, wall = timed(lambda: process_single_end(index, se_sub, out,
+                                               backend=mesh_b))
+    launches = verify.launches
+    same_bytes(out, ref, "mesh SE")
+    mesh_b.reset_adaptive()
+    verify.launches = 0
+    _, wall_pe = timed(lambda: process_paired_end(
+        index, pe_sub[0], pe_sub[1], out_pe, backend=mesh_b))
+    launches_pe = verify.launches
+    same_bytes(out_pe, ref_pe, "mesh PE")
+    if launches <= 0 or launches_pe <= 0:
+        raise AssertionError("a mesh end-to-end run never launched the "
+                             "verify kernel")
+    cli_note = "single card: the CLI's --tp has no effect, not run"
+    if not virtual:
+        tp_out = os.path.join(work, "mesh_cli.mr")
+        if cli.main(["-i", index, "-r", se_sub, "-1", pe_sub[0], "-2",
+                     pe_sub[1], "-o", f"{tp_out},{tp_out}.pe",
+                     "--tp", "2"]) != 0:
+            raise AssertionError("the CLI --tp 2 run failed")
+        same_bytes(tp_out, ref, "CLI --tp 2 SE")
+        same_bytes(tp_out + ".pe", ref_pe, "CLI --tp 2 PE")
+        cli_note = "the CLI's --tp 2 over all cards: byte-identical too"
+    say("mesh e2e", f"process_single_end {n_reads / wall:.1f} reads/s "
+                    f"({wall:.2f} s for {n_reads} reads, tables cached), "
+                    f"verify launches {launches}; process_paired_end "
+                    f"{n_pairs / wall_pe:.1f} pairs/s ({wall_pe:.2f} s for "
+                    f"{n_pairs} pairs), verify launches {launches_pe}; MR "
+                    f"and .mapstats byte-identical to the exact host path; "
+                    f"{cli_note}")
+    mesh_b.free_tables()
+    return launches, launches_pe
+
+
+def mesh_dryrun() -> None:
+    """Phase 12."""
+    from walt_tpu_torch import entry
+
+    out, wall = timed(lambda: entry.dryrun_multichip(4))
+    say("dryrun", f"entry.dryrun_multichip(4) passed in {wall:.2f} s: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -548,6 +896,21 @@ def main() -> int:
     pe_parity(index, pe, device, MIN_DEVICE_SHARE)
     launches_pe, _ = pe_end_to_end(index, pe, device, N_PAIRS)
 
+    mesh, virtual = smoke_mesh()
+    say("mesh", f"{mesh} ({'virtual, on one card' if virtual else 'real'}); "
+                f"{N_MESH_READS} reads, {N_MESH_PAIRS} pairs")
+    se_sub = head_fastq(fastq, os.path.join(DATA, "mesh_reads.fq"),
+                        N_MESH_READS)
+    pe_sub = tuple(head_fastq(f, os.path.join(DATA, f"mesh_pairs_{i}.fq"),
+                              N_MESH_PAIRS) for i, f in enumerate(pe, 1))
+    mesh_b, single = mesh_se_parity(index, se_sub, mesh, device,
+                                    N_MESH_READS, MIN_DEVICE_SHARE)
+    mesh_pe_parity(index, pe_sub, mesh_b, single, N_MESH_PAIRS,
+                   MIN_MESH_PE_SHARE)
+    launches_mesh, launches_mesh_pe = mesh_end_to_end(
+        index, se_sub, pe_sub, mesh_b, virtual, N_MESH_READS, N_MESH_PAIRS)
+    mesh_dryrun()
+
     if "jax" in sys.modules:
         raise AssertionError("walt_tpu_torch imported jax")
     print(json.dumps({"kernels": [{
@@ -555,6 +918,7 @@ def main() -> int:
         "source": "walt_tpu_torch/csrc/verify.cu",
         "replaces": "walt_tpu/ops/pallas_verify.py:93",
         "launches": launches, "launches_pe": launches_pe,
+        "launches_mesh": launches_mesh, "launches_mesh_pe": launches_mesh_pe,
         "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms,
         "wall_ms": k_wall, "plain_wall_ms": p_wall,

@@ -4,8 +4,11 @@
 ``.mapstats`` byte-identical to ``walt_tpu.cli --backend numpy`` (the exact
 host oracle) for every flag set below, single-end (``-r``) and paired-end
 (``-1``/``-2``), and to ``--backend jax`` for the default flags and ``-A``
-(SE) or ``-sam`` (PE).  A subprocess shows that the port runs without
-importing JAX (this test process has it loaded through tests/conftest.py).
+(SE) or ``-sam`` (PE).  ``--tp 2 --device cpu`` (one device: the table
+stays whole) is byte-identical to ``--backend numpy``; ``index`` and
+``merge-stats`` equal walt_tpu's.  A subprocess shows that the port, its
+``parallel`` package included, runs without importing JAX (this test
+process has it loaded through tests/conftest.py).
 """
 
 import os
@@ -112,6 +115,9 @@ import importlib, pkgutil, sys
 import walt_tpu_torch
 for m in pkgutil.walk_packages(walt_tpu_torch.__path__, "walt_tpu_torch."):
     importlib.import_module(m.name)
+for m in ("walt_tpu_torch.parallel.sharded", "walt_tpu_torch.parallel.multihost",
+          "walt_tpu_torch.entry"):
+    assert m in sys.modules, m
 from walt_tpu_torch import cli
 assert cli.main(sys.argv[1:]) == 0
 assert "jax" not in sys.modules, "walt_tpu_torch imported jax"
@@ -138,8 +144,6 @@ def test_cli_runs_without_jax(tmp_path, my_index, se_fastq, pe_fastq, mode):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--tp", "2"], "--tp"),
-    (["--multihost"], "--multihost"),
     (["--device", "cuda"], "no CUDA device"),
     (["WALTX_PROFILE_DIR"], "WALTX_PROFILE_DIR"),
 ])
@@ -154,3 +158,48 @@ def test_cli_rejects_unported(tmp_path, monkeypatch, my_index, se_fastq,
             *extra]
     with pytest.raises(SystemExit, match=match):
         tcli.main(args)
+
+
+def test_tp_on_one_cpu_device_matches_numpy(tmp_path, my_index, se_fastq,
+                                            pe_fastq):
+    from walt_tpu.cli import main_map
+
+    ref = [str(tmp_path / f"numpy_{k}.mr") for k in ("se", "pe")]
+    out = [str(tmp_path / f"torch_{k}.mr") for k in ("se", "pe")]
+    main_map(["-i", my_index, "-r", se_fastq, *_reads_args(pe_fastq), "-o",
+              ",".join(ref), "--backend", "numpy"])
+    assert tcli.main(["-i", my_index, "-r", se_fastq, *_reads_args(pe_fastq),
+                      "-o", ",".join(out), "--device", "cpu", "--tp",
+                      "2"]) == 0
+    _assert_same(ref[0], out[0], [])
+    _assert_same(ref[1], out[1], [], pe=True)
+
+
+def test_index_matches_walt_tpu(tmp_path, work):
+    from walt_tpu.cli import main as jmain
+
+    ref, out = str(tmp_path / "ref.dbindex"), str(tmp_path / "port.dbindex")
+    fasta = str(work / "genome.fa")
+    assert jmain(["index", "-c", fasta, "-o", ref]) == 0
+    assert tcli.main(["index", "-c", fasta, "-o", out]) == 0
+    for suf in ("", "_CT00", "_CT01", "_GA10", "_GA11"):
+        with open(ref + suf, "rb") as a, open(out + suf, "rb") as b:
+            assert a.read() == b.read(), suf
+
+
+def test_merge_stats_matches_walt_tpu(tmp_path, my_index, se_fastq,
+                                      pe_fastq):
+    from walt_tpu.cli import main as jmain
+
+    outs = [str(tmp_path / f"{k}.mr") for k in ("a", "b")]
+    for out in outs:
+        assert tcli.main(["-i", my_index, "-r", se_fastq, "-o", out,
+                          "--device", "cpu"]) == 0
+    stats = [o + ".mapstats" for o in outs]
+    ref, got = str(tmp_path / "ref.mapstats"), str(tmp_path / "got.mapstats")
+    assert jmain(["merge-stats", *stats, "-o", ref]) == 0
+    assert tcli.main(["merge-stats", *stats, "-o", got]) == 0
+    with open(ref) as a, open(got) as b:
+        text = b.read()
+        assert a.read() == text
+    assert "total_reads: " in text

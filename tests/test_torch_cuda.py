@@ -92,3 +92,90 @@ def test_map_mate_slabs_on_card_vs_native(cuda_device):
         genome.start_index.astype(np.uint32))
     assert launches > 0
     assert share > 0.75
+
+
+def _in_thread(fn):
+    """fn() on a worker thread, as the SE and PE drivers call the backend
+    (the current CUDA device is per thread); returns its result."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised on the test's thread
+            box["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=600)
+    assert not t.is_alive()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+@pytest.mark.cuda
+def test_verify_kernel_on_second_card_from_worker_thread(cuda_device):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev1 = torch.device("cuda", 1)
+    args = verify_inputs(np.random.default_rng(5), 5003, 7, 1 << 16, dev1)
+    mm_k, win_k = _in_thread(lambda: verify.verify_windows(*args, 7))
+    torch.cuda.synchronize(dev1)
+    mm_r, win_r = verify.verify_windows_reference(*args, 7)
+    assert mm_k.device == dev1
+    assert torch.equal(mm_k, mm_r) and torch.equal(win_k, win_r)
+
+
+@pytest.mark.cuda
+def test_mesh_on_card_matches_single_device(cuda_device):
+    """A dp=2 x tp=2 mesh (over the cards, or virtual over one card),
+    called from a worker thread: SE and PE results equal the single-device
+    backend's wherever neither fell back, through the kernel."""
+    from walt_tpu.constants import get_pattern
+    from walt_tpu.index.build import build_table
+    from walt_tpu.synth import make_genome_repetitive, sample_pairs
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i % n) for i in range(4)] if n >= 2
+               else [cuda_device] * 4)
+    mesh = make_mesh(devices, tp=2)
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [[build_table(genome, c, pattern, verbose=False) for c in pair]
+              for pair in (("CT00", "CT01"), ("GA10", "GA11"))]
+    c1, l1, c2, l2 = sample_pairs(genome, 3000, 100, seed=23)
+    mesh_b = TorchBackend(mesh=mesh, small_chunk=1024)
+    single = TorchBackend(device=cuda_device, small_chunk=1024)
+    before = verify.launches
+    got = _in_thread(lambda: mesh_b.map_single_end(c1, l1, tables[0], 5000,
+                                                   6, pattern))
+    assert verify.launches > before
+    want = single.map_single_end(c1, l1, tables[0], 5000, 6, pattern)
+    ok = ~(got[4] | want[4])
+    assert ok.mean() > 0.75
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g[ok], w[ok])
+    for codes, lens, tabs, ag in ((c1, l1, tables[0], False),
+                                  (c2, l2, tables[1], True)):
+        ms, mfb = _in_thread(lambda: mesh_b.map_mate_slabs(
+            codes, lens, tabs, ag, 5000, 6, pattern))
+        ss, sfb = single.map_mate_slabs(codes, lens, tabs, ag, 5000, 6,
+                                        pattern)
+        ok = ~(mfb | sfb)
+        assert ok.mean() > 0.6
+        for st, sst in zip(ms, ss):
+            for k in ("cnt", "seed", "pos", "mm"):
+                np.testing.assert_array_equal(st[k][ok], sst[k][ok])
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(cuda_device):
+    from walt_tpu_torch import entry
+
+    out = entry.dryrun_multichip(4)
+    assert out["unique"] > 0 and out["unique_pairs"] > 0

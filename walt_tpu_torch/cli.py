@@ -6,8 +6,16 @@ place of ``{jax,numpy}`` and ``--device {cuda,cpu}``.  Single-end files
 (``-r``) go through ``walt_tpu.core.single_end.process_single_end``, then
 paired-end files (``-1``/``-2``) through
 ``walt_tpu.core.paired_end.process_paired_end``, all on one backend.
-``--tp``, ``--multihost`` and ``WALTX_PROFILE_DIR`` (walt_tpu's JAX profiler
-hook) are not ported yet and are rejected.
+
+With ``--device cuda`` the backend spans every visible card as a (dp, tp)
+mesh, the table split ``--tp`` ways (one card maps unsharded, and ``--tp``
+then has no effect); ``--device cpu`` is one device.  ``--multihost`` runs
+one process per host over ``torch.distributed`` (``parallel/multihost``):
+read files are dealt round-robin and every output is byte-identical to a
+single-host run.  ``index`` builds an index (walt_tpu's indexer) and
+``merge-stats`` sums ``.mapstats`` files of split inputs.
+``WALTX_PROFILE_DIR`` (walt_tpu's JAX profiler hook) is not ported and is
+rejected.
 """
 
 from __future__ import annotations
@@ -39,8 +47,34 @@ def build_parser():
     return p
 
 
+def main_merge_stats(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m walt_tpu_torch.cli merge-stats",
+        description="sum .mapstats files from split-input runs into one",
+    )
+    p.add_argument("stats", nargs="+", help="per-part .mapstats files")
+    p.add_argument("-o", "--output", required=True)
+    args = p.parse_args(argv)
+
+    from walt_tpu_torch.parallel.multihost import merge_mapstats
+
+    merge_mapstats(args.stats, args.output)
+    return 0
+
+
 def main(argv=None) -> int:
-    argv = _apply_config_file(sys.argv[1:] if argv is None else argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "index":
+        from walt_tpu.cli import main_index
+
+        return main_index(argv[1:])
+    if argv and argv[0] == "merge-stats":
+        return main_merge_stats(argv[1:])
+    return main_map(argv)
+
+
+def main_map(argv) -> int:
+    argv = _apply_config_file(argv)
     if argv and argv[0] == "map":
         argv = argv[1:]
     parser = build_parser()
@@ -49,10 +83,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     _validate_index(args.index)
 
-    if args.tp != 1:
-        raise SystemExit("--tp is not yet ported to walt_tpu_torch")
-    if args.multihost:
-        raise SystemExit("--multihost is not yet ported to walt_tpu_torch")
     if os.environ.get("WALTX_PROFILE_DIR"):
         # the reused process_single_end would start walt_tpu's JAX profiler
         raise SystemExit("WALTX_PROFILE_DIR is walt_tpu's JAX profiler hook; "
@@ -76,6 +106,17 @@ def main(argv=None) -> int:
     if not (2 <= args.top_k <= 300):
         raise SystemExit("paired-end candidates must be in [2, 300]")
 
+    # multi-host: file-granular data parallelism across processes; each
+    # run's outputs are byte-identical to a single-host run of that file
+    pid, nproc = 0, 1
+    if args.multihost:
+        from walt_tpu_torch.parallel import multihost
+
+        if len(set(outputs)) != n_runs:
+            raise SystemExit("--multihost needs one output file per input "
+                             "file")
+        pid, nproc = multihost.initialize()
+
     from walt_tpu_torch.core.backends import get_backend
 
     if args.backend == "torch":
@@ -83,16 +124,21 @@ def main(argv=None) -> int:
 
         if args.device == "cuda" and not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device is available")
-        backend = get_backend("torch", device=args.device)
+        backend = get_backend(
+            "torch", device=args.device,
+            mesh="auto" if args.device == "cuda" else None, tp=args.tp)
     else:
         backend = get_backend("numpy")
 
     # clear output files so later appends make sense (walt.cpp:229-233);
     # under --resume process_single_end / process_paired_end restore or
-    # truncate from their checkpoints
+    # truncate from their checkpoints.  Under --multihost each process
+    # touches only its own runs' outputs.
     shared_output = len(set(outputs)) != len(outputs)
     if not args.resume:
-        for out in outputs:
+        for oi, out in enumerate(outputs):
+            if oi % nproc != pid:
+                continue
             open(out, "w").close()
             open(out + ".mapstats", "w").close()
     elif shared_output:
@@ -112,6 +158,8 @@ def main(argv=None) -> int:
 
     runs = [(f, None) for f in se_files] + list(zip(pe1, pe2))
     for oi, ((f1, f2), out) in enumerate(zip(runs, outputs)):
+        if oi % nproc != pid:
+            continue
         # per-file reset: file N's phase schedule must not depend on N-1
         if hasattr(backend, "reset_adaptive"):
             backend.reset_adaptive()
@@ -131,6 +179,9 @@ def main(argv=None) -> int:
             process_paired_end(args.index, f1, f2, out, top_k=args.top_k,
                                frag_range=args.fraglen, pbat=args.pbat,
                                **common)
+    if args.multihost:
+        multihost.barrier()
+        multihost.shutdown()
     return 0
 
 

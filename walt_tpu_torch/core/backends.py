@@ -1,7 +1,8 @@
 """Mapping backends of the port.
 
 - ``torch``: :class:`walt_tpu_torch.core.torch_backend.TorchBackend`, the
-  batched device pipeline on an explicit torch device;
+  batched device pipeline on an explicit torch device or a (dp, tp) mesh
+  (``get_backend("torch", mesh=..., tp=..., tp_accel=...)``);
 - ``numpy``: ``walt_tpu.core.backends.NumpyBackend``, the exact host oracle
   (it imports no JAX and is reused as it stands).
 """

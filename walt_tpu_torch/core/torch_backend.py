@@ -1,10 +1,10 @@
-"""PyTorch mapping backend (single device).
+"""PyTorch mapping backend, on one device or a (dp, tp) mesh.
 
-Port of ``walt_tpu/core/jax_backend.py`` without the mesh: prepares
-device-resident tables (packed genome words + an accelerating key
-structure), packs read batches to 2-bit words on the host, tiles them into a
-short ladder of chunk shapes, launches every chunk and then fetches the
-results, so host-to-device copies and compute overlap.
+Port of ``walt_tpu/core/jax_backend.py``: prepares device-resident tables
+(packed genome words + an accelerating key structure), packs read batches
+to 2-bit words on the host, tiles them into a short ladder of chunk
+shapes, launches every chunk and then fetches the results, so
+host-to-device copies and compute overlap.
 
 For single-end mapping the whole BestMatch fold runs on the device
 (``ops/se_fold``) and only (B, 3) results come back.  For paired-end
@@ -14,6 +14,11 @@ flat candidate stream is decoded on the host into the per-strand slabs
 shapes (or touch flagged buckets) are flagged for the exact host path --
 output is identical either way.
 
+With a mesh (``walt_tpu_torch.parallel``) every table is split over tp by
+bucket range and every chunk over dp, and the sharded steps replace the
+single-device ones; the device slab tiers then run even with the native
+library (walt_tpu's mesh policy).
+
 Every tensor is created on the backend's explicit ``device``:
 ``process_single_end`` and ``process_paired_end`` call the backend from a
 worker thread, and the current CUDA device is per thread.
@@ -22,6 +27,7 @@ worker thread, and the current CUDA device is per thread.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import numpy as np
@@ -33,6 +39,7 @@ from walt_tpu.core.errors import HbmBudgetError
 from walt_tpu.genome import Genome
 from walt_tpu.index.build import HashTable
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
+from walt_tpu_torch.parallel import sharded
 
 
 #: padded read length granularity: one packed 16-base word
@@ -76,7 +83,24 @@ class TorchBackend:
     def __init__(self, device="cuda", chunk: int = 131072,
                  small_chunk: int = 2048,
                  verify_slab: int = pipeline.VERIFY_SLAB,
-                 cand_slab: int = pipeline.CAND_SLAB):
+                 cand_slab: int = pipeline.CAND_SLAB,
+                 mesh=None, tp: int | None = None, tp_accel: str = "uniq"):
+        """``mesh``: a :class:`walt_tpu_torch.parallel.Mesh`, the string
+        "auto" (every visible CUDA device when ``device`` is CUDA and there
+        is more than one, split ``tp`` ways; else no mesh), or None (the one
+        ``device``).  With a mesh, ``device`` is the mesh's first device.
+        ``tp_accel``: the per-shard refinement structure, "uniq" or "key16"
+        (the hg19-class memory rung)."""
+        if mesh == "auto":
+            mesh = None
+            if torch.device(device).type == "cuda" and \
+                    torch.cuda.is_available() and \
+                    torch.cuda.device_count() > 1:
+                mesh = sharded.make_mesh(tp=tp or 1)
+        if mesh is not None:
+            device = mesh.devices[0][0]
+        if tp_accel not in ("uniq", "key16"):
+            raise ValueError(f"TorchBackend: unknown tp_accel {tp_accel!r}")
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -88,6 +112,9 @@ class TorchBackend:
         elif device.type != "cpu":
             raise ValueError(f"TorchBackend: unsupported device {device}")
         self.device = device
+        self.mesh = mesh
+        self.tp_accel = tp_accel
+        self._dp = mesh.shape["dp"] if mesh is not None else 1
         self.chunk = chunk
         self.small_chunk = small_chunk
         self.verify_slab = verify_slab
@@ -132,19 +159,30 @@ class TorchBackend:
         often); a key16 entry built without it is then rebuilt, so a PE run
         after an SE run in one process takes the wide rung and still holds
         one copy of each table.  ``ag_wildcard`` names the table in
-        :attr:`rungs`."""
+        :attr:`rungs`.
+
+        On a mesh the entry's tensors are the shard grid of
+        ``sharded.shard_and_place``, on the ``tp_accel`` rung ("uniq" with
+        3 key words when ``n_key_words`` asks for them); ``wide_kw`` does
+        not apply."""
         # the entry holds strong references to (genome, table): the id()
         # key is only unambiguous while those objects are alive
         key = (id(genome), id(table), pattern.name)
         got = self._tables.get(key)
         if got is not None:
-            kw_arr = got[1]["key_words"]
+            kw_arr = (got[1][0][0] if self.mesh is not None
+                      else got[1])["key_words"]
             stored = kw_arr.shape[-1] if kw_arr.dim() == 2 else 1
-            key16_not_wide = (wide_kw and not got[4]
+            key16_not_wide = (wide_kw and not got[4] and self.mesh is None
                               and kw_arr.dtype == torch.int16)
             if stored < n_key_words or key16_not_wide:
                 # rebuild with deeper or wider key words
                 del self._tables[key]
+        if key not in self._tables and self.mesh is not None:
+            self._tables[key] = self._build_sharded_table(
+                genome, table, pattern, n_key_words,
+                TABLE_NAMES[ag_wildcard, genome.strand]) + (genome, table,
+                                                            wide_kw)
         if key not in self._tables:
             if key in self._failed_tables:
                 raise HbmBudgetError(
@@ -167,6 +205,22 @@ class TorchBackend:
         self._failed_tables.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    def _build_sharded_table(self, genome: Genome, table: HashTable,
+                             pattern: SeedPattern, n_key_words: int,
+                             name: str):
+        """(dt, shard grid) of one table on the mesh.  Runs whose -b is
+        below the verify slabs need 3 key words and so the uniq accel;
+        others take ``tp_accel``.  No memory budget: tp is how a table is
+        made to fit (walt_tpu's mesh path has none either)."""
+        need_full = n_key_words >= 3
+        dt = device_index.build_device_table(genome, table, pattern)
+        accel = "uniq" if need_full else self.tp_accel
+        grid, dt.uniq_bits = sharded.shard_and_place(
+            dt, self.mesh, pattern, accel=accel,
+            n_key_words=3 if need_full else 0)
+        self.rungs[name] = "3-word" if need_full else accel
+        return dt, grid
 
     def _hbm_budget(self) -> int | None:
         """Device memory in bytes, or None when unconstrained (CPU)."""
@@ -325,7 +379,8 @@ class TorchBackend:
         """Pack reads and lazily yield fixed-shape (preads, lens) chunks on
         the device, from a short ladder of chunk shapes (small_chunk, x4
         steps, chunk/2, chunk) so batch tails do not pay a full chunk; tiers
-        with a large verify slab pass an explicit small ``chunk``."""
+        with a large verify slab pass an explicit small ``chunk``.  On a mesh
+        every chunk shape is a multiple of dp."""
         n = codes.shape[0]
         Lmax = _round_up(max(int(codes.shape[1]), pattern.min_read_len),
                          LEN_PAD)
@@ -339,9 +394,10 @@ class TorchBackend:
         if self.chunk // 2 > ladder[-1]:
             ladder.append(self.chunk // 2)
         ladder.append(self.chunk)
+        ladder = [_round_up(c, self._dp) for c in ladder]
         a = 0
         while a < n:
-            c = chunk if chunk is not None else next(
+            c = _round_up(chunk, self._dp) if chunk is not None else next(
                 (s for s in ladder if n - a <= s), ladder[-1])
             z = min(a + c, n)
             pc = np.zeros((c, W), dtype=np.uint32)
@@ -358,9 +414,14 @@ class TorchBackend:
         return [t.to("cpu", non_blocking=True) for t in tensors]
 
     def _wait(self, host):
-        """One synchronize, then the copies of :meth:`_to_host` as numpy."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """One synchronize of every device in use, then the copies of
+        :meth:`_to_host` as numpy.  Each device is named: the current device
+        is per thread, and the drivers call from a worker thread."""
+        devices = (self.mesh.distinct() if self.mesh is not None
+                   else [self.device])
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         return [h.numpy() for h in host]
 
     def _fetch(self, tensors):
@@ -400,8 +461,11 @@ class TorchBackend:
                 wl_factor=pipeline.WL_FACTOR):
             m = codes_.shape[0]
             spans, results = [], []
+            step = (se_fold.map_single_end_device if self.mesh is None else
+                    functools.partial(sharded.map_single_end_sharded,
+                                      mesh=self.mesh))
             for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
-                results.append(se_fold.map_single_end_device(
+                results.append(step(
                     pc, pl, b, max_mismatches, tuple(devs),
                     pattern_name=pattern.name, ag_wildcard=ag_wildcard,
                     search_bits=tuple(bits), verify_slab=slab,
@@ -449,13 +513,17 @@ class TorchBackend:
         if self._wl1 < pipeline.WL_FACTOR and n and fb.mean() > 0.05:
             # dense-candidate workload: widen future batches' worklists
             self._wl1 = pipeline.WL_FACTOR
-        # With the native exact enumerator every overflow read goes to the
-        # host replay, which process_single_end runs concurrently with the next
-        # batch's device work (the JAX package's single-device policy).  The
-        # device tiers below run only without the native library.
+        # With the native exact enumerator every overflow read on ONE device
+        # goes to the host replay, which process_single_end runs
+        # concurrently with the next batch's device work (the JAX package's
+        # single-device policy).  On a mesh the device tiers below run even
+        # with the native library (walt_tpu's mesh policy): a tp mesh on the
+        # key16 rung, the hg19 deployment, overflows tier 1 on most reads,
+        # and replaying most of a workload on one host would leave the
+        # devices idle.
         from walt_tpu import native as _native
 
-        if _native.get_lib() is None:
+        if _native.get_lib() is None or self.mesh is not None:
             # Tier 2: larger verify slab for reads that overflowed tier 1;
             # Tier 3: highly repetitive reads (runs up to 512); Tier 4: the
             # deep-repeat tail (key16 run groups up to 4096).  Small chunks
@@ -493,8 +561,11 @@ class TorchBackend:
                 bits.append(dt.max_bucket_bits)
                 ubits.append(dt.uniq_bits)
             spans, results = [], []
+            step = (pe_map.map_mate_device if self.mesh is None else
+                    functools.partial(sharded.map_mate_sharded,
+                                      mesh=self.mesh))
             for a, z, pc, pl in self._chunks(codes, lens, pattern):
-                results.extend(pe_map.map_mate_device(
+                results.extend(step(
                     pc, pl, b, max_mismatches, tuple(devs),
                     pattern_name=pattern.name, ag_wildcard=ag_wildcard,
                     search_bits=tuple(bits), verify_slab=pe_map.VERIFY_SLAB,
@@ -513,7 +584,7 @@ class TorchBackend:
         Reads that overflowed a slab or spilled the flat stream are flagged
         and go to the native host replay, which process_paired_end runs
         concurrently with the next batch's device work (the JAX package's
-        single-device policy; see ``PERF.md`` section 7).
+        policy, on a mesh too; see ``PERF.md`` section 7).
         """
         n, spans, host = handle
         with _oom_as_budget_error():
@@ -526,10 +597,16 @@ class TorchBackend:
     def _decode_mate(self, spans, host, n: int):
         """Flat (meta, flat) chunk results -> per-strand slab streams.
 
-        ``host``: meta (B,) and flat (M, 2) per chunk of ``spans``.  Returns
-        ([dict(seed, pos, mm, cnt)] for strand '+' then '-', fallback (n,)
-        bool); slabs are (n, cand_slab), C-contiguous, as
-        ``native.pe_finalize`` takes them.
+        ``host``: per chunk of ``spans``, meta (B,) and flat (M, 2) from one
+        device, or meta (T, B) and flat (T, dp*M_l, 2) from a mesh: one
+        stream per tp shard, each in dp segments of B/dp reads and M_l rows.
+        A (read, seed) bucket lives on one shard, so with T > 1 the shards'
+        entries are interleaved back into examination order (seed asc, then
+        shard and stream order) by one lexsort.  Returns ([dict(seed, pos,
+        mm, cnt)] for strand '+' then '-', fallback (n,) bool); slabs are
+        (n, cand_slab), C-contiguous, as ``native.pe_finalize`` takes them.
+        A read with more than cand_slab merged entries on a strand falls
+        back.
         """
         C = self.cand_slab
         streams = [dict(seed=np.zeros((n, C), dtype=np.int8),
@@ -538,30 +615,72 @@ class TorchBackend:
                         cnt=np.zeros(n, dtype=np.int32))
                    for _ in range(2)]
         fallback = np.zeros(n, dtype=bool)
+        cnt_acc = np.zeros((2, n), dtype=np.int64)
+        pend = []  # entries of several shards, awaiting the seed-order merge
         for i, (a, z) in enumerate(spans):
-            meta = host[2 * i][: z - a].astype(np.int64)
-            flat = host[2 * i + 1].view(np.uint32)
-            cnt0 = meta & 0xFF
-            cnt1 = (meta >> 8) & 0xFF
-            fallback[a:z] = (meta >> 16) & 1
-            streams[0]["cnt"][a:z] = cnt0
-            streams[1]["cnt"][a:z] = cnt1
-            total = cnt0 + cnt1
-            m = int(total.sum())  # <= M: spilled reads carry no count
-            if not m:
-                continue
-            rid = np.repeat(np.arange(z - a), total)
-            within = np.arange(m) - (np.cumsum(total) - total)[rid]
-            w1 = flat[:m, 1]
-            strand = (w1 >> 1) & 1
-            col = np.where(strand == 0, within, within - cnt0[rid])
-            for s, st in enumerate(streams):
-                sel = strand == s
-                r, c = rid[sel] + a, col[sel]
-                st["seed"][r, c] = ((w1[sel] >> 2) & 0x3F).astype(np.int8)
-                st["pos"][r, c] = flat[:m, 0][sel]
-                st["mm"][r, c] = (w1[sel] >> 8).astype(np.int32)
+            metas, flats = host[2 * i], host[2 * i + 1].view(np.uint32)
+            if metas.ndim == 1:
+                metas, flats = metas[None], flats[None]
+            T = metas.shape[0]
+            seg_reads = metas.shape[1] // self._dp
+            seg_m = flats.shape[1] // self._dp
+            for t in range(T):
+                for g in range(self._dp):
+                    a0 = a + g * seg_reads
+                    if a0 >= z:
+                        break
+                    z0 = min(a0 + seg_reads, z)
+                    meta = metas[t, g * seg_reads:][: z0 - a0].astype(np.int64)
+                    flat = flats[t, g * seg_m:(g + 1) * seg_m]
+                    cnt0 = meta & 0xFF
+                    cnt1 = (meta >> 8) & 0xFF
+                    fallback[a0:z0] |= ((meta >> 16) & 1).astype(bool)
+                    cnt_acc[0, a0:z0] += cnt0
+                    cnt_acc[1, a0:z0] += cnt1
+                    total = cnt0 + cnt1
+                    m = int(total.sum())  # <= M_l: spilled reads count none
+                    if not m:
+                        continue
+                    rid = np.repeat(np.arange(z0 - a0), total)
+                    within = np.arange(m) - (np.cumsum(total) - total)[rid]
+                    w1 = flat[:m, 1]
+                    strand = (w1 >> 1) & 1
+                    entry = (rid + a0, strand, (w1 >> 2) & 0x3F, flat[:m, 0],
+                             w1 >> 8,
+                             np.where(strand == 0, within, within - cnt0[rid]))
+                    if T == 1:
+                        self._put(streams, *entry)
+                    else:
+                        pend.append(entry + (np.full(m, t),))
+        if pend:
+            rid, strand, seed, pos, mm, col, shard = (
+                np.concatenate([p[k] for p in pend]) for k in range(7))
+            # examination order: seed asc (one shard per (read, seed)), then
+            # the shard's stream order
+            order = np.lexsort((col, shard, seed, strand, rid))
+            rid, strand, seed, pos, mm = (
+                x[order] for x in (rid, strand, seed, pos, mm))
+            start = np.ones(rid.shape[0], dtype=bool)
+            start[1:] = (rid[1:] != rid[:-1]) | (strand[1:] != strand[:-1])
+            col = np.arange(rid.shape[0]) - np.maximum.accumulate(
+                np.where(start, np.arange(rid.shape[0]), 0))
+            ok = col < C  # reads past the slab fall back through cnt_acc
+            self._put(streams, rid[ok], strand[ok], seed[ok], pos[ok],
+                      mm[ok], col[ok])
+        for s, st in enumerate(streams):
+            st["cnt"][:] = np.minimum(cnt_acc[s], C)
+        fallback |= (cnt_acc > C).any(0)
         return streams, fallback
+
+    @staticmethod
+    def _put(streams, rid, strand, seed, pos, mm, col):
+        """Write decoded flat entries into the per-strand slabs."""
+        for s, st in enumerate(streams):
+            sel = strand == s
+            r, c = rid[sel], col[sel]
+            st["seed"][r, c] = seed[sel].astype(np.int8)
+            st["pos"][r, c] = pos[sel]
+            st["mm"][r, c] = mm[sel].astype(np.int32)
 
     def map_mate_slabs(self, codes: np.ndarray, lens: np.ndarray, tables,
                        ag_wildcard: bool, b: int, max_mismatches: int,
@@ -604,17 +723,22 @@ class TorchBackend:
             m = codes_.shape[0]
             spans, results = [], []
             for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
-                results.extend(pipeline.map_strand_core(
-                    pc, pl, b, max_mismatches, dev["pseq"], dev["counter"],
-                    dev["index"], dev["key_words"], dev["start_index"],
-                    dev["bucket_flagged"], pattern_name=pattern.name,
-                    ag_wildcard=ag_wildcard, search_bits=dt.max_bucket_bits,
-                    verify_slab=slab, cand_slab=C, wl_factor=wl_factor,
-                    exact_b=b < slab, uniq_words=dev["uniq_words"],
-                    uniq_off=dev["uniq_off"], uniq_counter=dev["uniq_counter"],
-                    uniq_bits=dt.uniq_bits,
-                    full_mask=self._full_mask(lens_[a:z], pattern),
-                ))
+                kw = dict(pattern_name=pattern.name, ag_wildcard=ag_wildcard,
+                          search_bits=dt.max_bucket_bits, verify_slab=slab,
+                          cand_slab=C, wl_factor=wl_factor, exact_b=b < slab,
+                          uniq_bits=dt.uniq_bits,
+                          full_mask=self._full_mask(lens_[a:z], pattern))
+                if self.mesh is not None:
+                    r = sharded.map_strand_sharded(
+                        pc, pl, b, max_mismatches, dev, mesh=self.mesh, **kw)
+                else:
+                    r = pipeline.map_strand_core(
+                        pc, pl, b, max_mismatches, dev["pseq"],
+                        dev["counter"], dev["index"], dev["key_words"],
+                        dev["start_index"], dev["bucket_flagged"],
+                        uniq_words=dev["uniq_words"], uniq_off=dev["uniq_off"],
+                        uniq_counter=dev["uniq_counter"], **kw)
+                results.extend(r)
                 spans.append((a, z))
             out = (
                 np.empty((m, C), dtype=np.int8),

@@ -28,8 +28,12 @@ where the JAX code relies on u32 wraparound.  JAX's clamped gathers
 (``mode="clip"``) are explicit clamps, and its dropped scatters
 (``mode="drop"``) scatter into one spare slot that is sliced off.
 
-Not ported yet: ``key_base``/``tp_route`` (multi-GPU table sharding) and
-``stage_out`` (the XLA stage profiler).
+With ``key_base`` the table is one tp shard of a bucket-range split
+(``walt_tpu_torch.parallel.sharded``): keys outside the shard's buckets
+yield empty regions, and with ``tp_route`` the (read, seed) pairs the shard
+owns are compacted first, so everything from the search down runs at about
+1/T of the unsharded size.  ``stage_out`` (walt_tpu's XLA stage profiler) is
+not ported.
 """
 
 from __future__ import annotations
@@ -105,6 +109,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
                     wl_factor: float = WL_FACTOR, exact_b: bool = False,
                     uniq_words=None, uniq_off=None, uniq_counter=None,
                     uniq_bits: int = 0, full_mask: bool = False,
+                    key_base: int | None = None, tp_route: int = 0,
                     emit_wl: bool = False):
     """Map a read batch against one table.
 
@@ -127,6 +132,14 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     ``full_mask``: promise that every real read compares a full first key
     word (seed_len >= key_weight + 16), so the refined run is one word-0 run
     and needs no upper-bound probe chain.
+
+    ``key_base``: the table is one tp shard whose ``counter`` spans buckets
+    [key_base, key_base + len(counter) - 1); keys outside it yield empty
+    regions.  ``tp_route`` (needs ``key_base``): the tp size T.  With T > 1
+    the shard's owned (read, seed) pairs are compacted, order-preserving,
+    into K = min(B*S, int(1.25*B*S/T) + 128) rows before the search, and the
+    worklist shrinks to ``int(wl_factor*B/T)`` rows; reads whose owned pairs
+    spill K fall back, like worklist spills.
 
     ``emit_wl``: skip the slab compaction and return the worklist stream
     ``((wl_read, col, pos, mm, shift, keep), cand_cnt, fallback)``: (M,)
@@ -183,9 +196,20 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     # path in the exact_b mode.  On the uniq path lo/hi are RUN-space bounds
     bounds = uniq_counter if use_uniq else counter
     fbit = 2 if exact_b else 1
-    lo = bounds[key].to(torch.int64)  # (B, S)
-    hi = bounds[key + 1].to(torch.int64)
-    flagged = (bucket_flagged[key] & fbit) != 0
+    route = tp_route > 1 and key_base is not None
+    if key_base is None:
+        lo = bounds[key].to(torch.int64)  # (B, S)
+        hi = bounds[key + 1].to(torch.int64)
+        flagged = (bucket_flagged[key] & fbit) != 0
+    else:
+        # u32 wrap: a key below the shard's base becomes large, not negative
+        local = (key - key_base) & MASK32
+        in_range = local < bounds.shape[0] - 1
+        lidx = torch.where(in_range, local, 0)
+        flagged = in_range & ((bucket_flagged[lidx] & fbit) != 0)
+        if not route:
+            lo = torch.where(in_range, bounds[lidx].to(torch.int64), 0)
+            hi = torch.where(in_range, bounds[lidx + 1].to(torch.int64), 0)
 
     # --- read prefix key words (cared[kw..kw+47] per shift) + masks; reads
     # of W words cannot need deeper words than seed_len_for_len(W*16)
@@ -206,6 +230,40 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         m = torch.where(nbits > 0, (MASK32 << shift) & MASK32, 0)
         masks.append(m.expand(B, S))
     rws = [rw & m for rw, m in zip(rwords, masks)]
+
+    if route:
+        # --- compact this shard's OWNED (read, seed) pairs into K rows.  The
+        # flat pair order is read-major then seed asc, so examination order
+        # is kept; everything below runs in the row space (K,) instead of
+        # (B, S)
+        pairs = B * S
+        K = min(pairs, int(1.25 * pairs / tp_route) + 128)
+        own_flat = in_range.reshape(pairs)
+        gq = torch.cumsum(own_flat, 0) - 1
+        r_src = torch.full((K + 1,), -1, dtype=torch.int64, device=dev)
+        r_src[torch.where(own_flat & (gq < K), gq, K)] = torch.arange(
+            pairs, dtype=torch.int64, device=dev)
+        r_src = r_src[:K]
+        # reads whose owned pairs spilled the route capacity -> host path
+        route_spill = (own_flat & (gq >= K)).reshape(B, S).any(1)
+        rvalid = r_src >= 0
+        r_flat = torch.clamp(r_src, min=0)
+        r_read = r_flat // S
+        r_seedi = r_flat % S
+
+        def rgat(x):  # (B, S) -> (K,)
+            return x.reshape(-1)[r_flat]
+
+        lidx_r = rgat(lidx)
+        lo = torch.where(rvalid, bounds[lidx_r].to(torch.int64), 0)
+        hi = torch.where(rvalid, bounds[lidx_r + 1].to(torch.int64), 0)
+        flagged_r = rgat(flagged) & rvalid
+        masks = [rgat(m) for m in masks]
+        rws = [rgat(w) for w in rws]
+
+        def by_read(v):  # (K,) bool -> (B,) any
+            return torch.zeros(B, dtype=torch.int64, device=dev).index_add_(
+                0, r_read, (v & rvalid).to(torch.int64)) > 0
 
     # key words probed by the search and slab admission; the fast path
     # defers words beyond the first to the window cared check
@@ -270,7 +328,9 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     # --- slab membership: an entry is in the reference's refined range iff
     # its masked key words EQUAL the read's masked prefix words
     shifts = const(seeds)  # (S,)
-    jC = torch.arange(C, dtype=torch.int64, device=dev)[None, None, :]
+    # row space: (B, S) unrouted, (K,) routed; jC broadcasts the slab axis
+    jC = torch.arange(C, dtype=torch.int64, device=dev)
+    jC = jC[None, :] if route else jC[None, None, :]
     if use_uniq:
         # run bounds are exact: slab admission is pure arithmetic
         refined_cnt = torch.clamp(run_len, max=C)
@@ -295,13 +355,17 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         examined = torch.clamp(hi - lower, 0, C)
         overflow = (refined_cnt == examined) & ((hi - lower) > C) & ~capped
 
+    row_ok = read_ok[r_read] if route else read_ok[:, None]
     keep_pre = (refined & ~capped[..., None] & ~overflow[..., None]
-                & read_ok[:, None, None])
+                & row_ok[..., None])
 
     # --- compact the refined survivors into one flat cross-read worklist in
-    # (read, seed asc, bucket position asc) order = examination order
-    M = max(1, int(wl_factor * B))
-    n_flat = B * S * C
+    # (read, seed asc, bucket position asc) order = examination order; a
+    # routed shard carries ~1/T of the survivors, so its worklist shrinks by
+    # T (the float arithmetic is walt_tpu's, so M is the same)
+    M = max(1, int(wl_factor * B / (tp_route if route else 1)))
+    n_rows = K if route else B * S
+    n_flat = n_rows * C
     keep_flat = keep_pre.reshape(n_flat)
     gidx = torch.cumsum(keep_flat, 0) - 1
     wl_src = torch.full((M + 1,), -1, dtype=torch.int64, device=dev)
@@ -309,13 +373,18 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         n_flat, dtype=torch.int64, device=dev)
     wl_src = wl_src[:M]
     # reads whose survivors spilled past the worklist take the host path
-    wl_spill = (keep_flat & (gidx >= M)).reshape(B, S * C).any(1)
+    spilled = (keep_flat & (gidx >= M)).reshape(n_rows, C).any(1)
+    wl_spill = by_read(spilled) if route else spilled.reshape(B, S).any(1)
 
     wl_valid = wl_src >= 0
     wl_flat = torch.clamp(wl_src, min=0)
     wl_bs = wl_flat // C
-    wl_read = wl_flat // (S * C)
-    wl_seedi = wl_bs % S
+    if route:
+        wl_read = r_read[wl_bs]
+        wl_seedi = r_seedi[wl_bs]
+    else:
+        wl_read = wl_flat // (S * C)
+        wl_seedi = wl_bs % S
     wl_entryidx = lower.reshape(-1)[wl_bs] + wl_flat % C
     wl_shift = shifts[wl_seedi]  # (M,)
     # genome POSITIONS are u32 end to end (4 Gbp format); the u32 wraps of
@@ -388,17 +457,21 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     rank = torch.cumsum(keep64, 0) - 1
     col = torch.where(wl_keep, rank - base[wl_read], cand_slab)
 
+    if route:
+        # flagged buckets: stored order / padding quirks make the refined
+        # run irreproducible on device -> exact host path
+        device_fb = by_read(overflow) | by_read(flagged_r & (hi > lo))
+    else:
+        device_fb = overflow.any(1) | (flagged & (hi > lo)).any(1)
     fallback = (
-        (overflow.any(1)
-         # flagged buckets: stored order / padding quirks make the refined
-         # run irreproducible on device -> exact host path
-         | (flagged & (hi > lo)).any(1))
-        & read_ok
+        device_fb & read_ok
         # packed key words cover cared positions kw..kw+47 only
         | (seed_len > kw + 48)
         | (cnt > cand_slab)
         | wl_spill
     )
+    if route:
+        fallback = fallback | route_spill
     cand_cnt = torch.clamp(cnt, max=cand_slab).to(torch.int32)
     if emit_wl:
         wl = (wl_read, col, wl_gpos, mm, wl_shift, wl_keep)

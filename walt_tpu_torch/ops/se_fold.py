@@ -7,8 +7,8 @@ a chunk costs one small ((B, 3)) device-to-host copy instead of the slabs.
 The fold is the torch form of ``walt_tpu.host.replay_vec`` (the vectorized
 BestMatch state machine, mapping.cpp:224-316, with the seed early-exit gates
 of mapping.cpp:248-263): identical ``times`` / stored-position / strand
-semantics.  ``combine_summaries`` (tensor-parallel shards) is not ported
-yet.
+semantics.  :func:`combine_summaries` joins the summaries of the tp shards
+of one table (``walt_tpu_torch.parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -65,6 +65,23 @@ def segment_summaries(cand_seed, cand_pos, cand_mm, pattern):
     first_pos = torch.where(first, pos, 0).sum(2)
     return dict(seg_min=seg_min, inner_t=inner_t, first_pos=first_pos,
                 last_pos=v[:, :, -1], has=h[:, :, -1])
+
+
+def combine_summaries(parts):
+    """Join the summaries of one table's tp shards.
+
+    A bucket lives wholly on one shard, so at most one shard has
+    contributors for a (read, seed): the first shard with ``has`` wins, and
+    ``seg_min`` is min-combined for safety (walt_tpu's rule).
+    """
+    out = dict(parts[0])
+    for p in parts[1:]:
+        take = ~out["has"] & p["has"]
+        out["seg_min"] = torch.minimum(out["seg_min"], p["seg_min"])
+        for k in ("inner_t", "first_pos", "last_pos"):
+            out[k] = torch.where(take, p[k], out[k])
+        out["has"] = out["has"] | p["has"]
+    return out
 
 
 def fold_summaries(summaries, max_mm: int, pattern):
@@ -152,7 +169,12 @@ def map_single_end_device(preads, lens, b: int, max_mm: int, tables, *,
         )
         slabs.append((cs, cp, cm))
         fallback = fb if fallback is None else (fallback | fb)
-    pos, times, minus, mm = se_fold(slabs, max_mm, pattern)
+    return pack_se_result(*se_fold(slabs, max_mm, pattern), fallback)
+
+
+def pack_se_result(pos, times, minus, mm, fallback):
+    """One (B, 3) int64 tensor [pos, times, (mm << 2) | (minus << 1) |
+    fallback] from the fold's outputs and the fallback mask."""
     flags = (mm << 2) | (minus.to(torch.int64) << 1) | fallback.to(torch.int64)
     return torch.stack([pos, times, flags], dim=1)
 

@@ -218,9 +218,9 @@ def build_data(data_dir: str, n_bases: int, n_reads: int, n_pairs: int,
     """Phase 4: genome FASTA, 5-file WALT index, SE FASTQ and the two PE
     FASTQs, each built once (the SE set and the PE set under stamps of
     their own).  Returns (index, fastq, (fastq_1, fastq_2))."""
-    from walt_tpu.index.build import build_all_tables
-    from walt_tpu.index.io_walt import write_index
-    from walt_tpu.synth import (
+    from walt_tpu_torch.index.build import build_all_tables
+    from walt_tpu_torch.index.io_walt import write_index
+    from walt_tpu_torch.synth import (
         codes_to_fastq, make_genome_repetitive, sample_pairs, sample_reads,
         write_genome_fasta,
     )
@@ -271,10 +271,10 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     import numpy as np
     import torch
 
-    from walt_tpu import native
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.host.fastq import FgetsLines, load_batch
-    from walt_tpu.index import io_walt
+    from walt_tpu_torch import native
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.index import io_walt
     from walt_tpu_torch.core.torch_backend import TorchBackend
     from walt_tpu_torch.ops import verify
 
@@ -344,8 +344,8 @@ class AllFallback:
 def end_to_end(index: str, fastq: str, device, n_reads: int):
     """Phase 6: the CLI's output == the exact host path's, byte for byte.
     Returns (launches of the timed run, wall seconds)."""
-    from walt_tpu import perf
-    from walt_tpu.core.single_end import process_single_end
+    from walt_tpu_torch import perf
+    from walt_tpu_torch.core.single_end import process_single_end
     from walt_tpu_torch import cli
     from walt_tpu_torch.ops import verify
 
@@ -397,8 +397,8 @@ def map_pairs_vs_exact(backend, mates, tables, chrom_start):
     seconds, exact-path seconds)."""
     import numpy as np
 
-    from walt_tpu import native
-    from walt_tpu.constants import get_pattern
+    from walt_tpu_torch import native
+    from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.ops import verify
 
     pattern = get_pattern("3")
@@ -448,8 +448,8 @@ def pe_parity(index: str, pe, device, min_share: float):
     import numpy as np
     import torch
 
-    from walt_tpu.host.fastq import FgetsLines, load_batch
-    from walt_tpu.index import io_walt
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.index import io_walt
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
     gm, _ = io_walt.read_head(index)
@@ -512,8 +512,8 @@ class AllFallbackPE:
 def pe_end_to_end(index: str, pe, device, n_pairs: int):
     """Phase 8: the CLI's PE output == the exact host path's, byte for
     byte.  Returns (launches of the timed run, wall seconds)."""
-    from walt_tpu import perf
-    from walt_tpu.core.paired_end import process_paired_end
+    from walt_tpu_torch import perf
+    from walt_tpu_torch.core.paired_end import process_paired_end
     from walt_tpu_torch import cli
     from walt_tpu_torch.ops import verify
 
@@ -582,7 +582,7 @@ def head_fastq(src: str, dst: str, n_records: int) -> str:
 
 def load_reads(fastq: str, n: int):
     """(codes, lens) of the first ``n`` reads of ``fastq``."""
-    from walt_tpu.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
 
     lines = FgetsLines(fastq)
     try:
@@ -677,9 +677,9 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
                    min_share: float):
     """Phase 9 (``device``: the single-device backend's).  Returns (mesh
     backend, single-device backend)."""
-    from walt_tpu import native
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.index import io_walt
+    from walt_tpu_torch import native
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index import io_walt
     from walt_tpu_torch.core.torch_backend import TorchBackend
     from walt_tpu_torch.ops import verify
 
@@ -744,8 +744,8 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
     """Phase 10."""
     import numpy as np
 
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.index import io_walt
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index import io_walt
 
     pattern = get_pattern("3")
     gm, _ = io_walt.read_head(index)
@@ -810,8 +810,8 @@ def fresh(*paths: str) -> None:
 def mesh_end_to_end(index, se_sub, pe_sub, mesh_b, virtual: bool,
                     n_reads: int, n_pairs: int):
     """Phase 11.  Returns (SE launches, PE launches)."""
-    from walt_tpu.core.paired_end import process_paired_end
-    from walt_tpu.core.single_end import process_single_end
+    from walt_tpu_torch.core.paired_end import process_paired_end
+    from walt_tpu_torch.core.single_end import process_single_end
     from walt_tpu_torch import cli
     from walt_tpu_torch.ops import verify
 

@@ -121,6 +121,7 @@ for m in ("walt_tpu_torch.parallel.sharded", "walt_tpu_torch.parallel.multihost"
 from walt_tpu_torch import cli
 assert cli.main(sys.argv[1:]) == 0
 assert "jax" not in sys.modules, "walt_tpu_torch imported jax"
+assert not [m for m in sys.modules if m.split(".")[0] == "walt_tpu"]
 print("NO_JAX_OK")
 """
 
@@ -149,15 +150,32 @@ def test_cli_runs_without_jax(tmp_path, my_index, se_fastq, pe_fastq, mode):
 ])
 def test_cli_rejects_unported(tmp_path, monkeypatch, my_index, se_fastq,
                               extra, match):
+    """``--device cuda`` without a card is refused.  ``WALTX_PROFILE_DIR``
+    (refused while the port had no profiler hook of its own) now writes a
+    torch.profiler Chrome trace of the mapping loop, and the output stays
+    byte-identical to ``--backend numpy``."""
     if "cuda" in extra and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    args = ["-i", my_index, "-o", str(tmp_path / "o.mr"), "-r", se_fastq]
     if extra == ["WALTX_PROFILE_DIR"]:
-        monkeypatch.setenv("WALTX_PROFILE_DIR", str(tmp_path / "prof"))
-        extra = []
-    args = ["-i", my_index, "-o", str(tmp_path / "o.mr"), "-r", se_fastq,
-            *extra]
+        import json
+
+        from walt_tpu.cli import main_map
+
+        prof = tmp_path / "prof"
+        monkeypatch.setenv(match, str(prof))
+        assert tcli.main(args + ["--device", "cpu"]) == 0
+        traces = sorted(prof.glob("*.json"))
+        assert len(traces) == 1
+        with open(traces[0]) as f:
+            assert json.load(f)["traceEvents"]
+        monkeypatch.delenv(match)
+        main_map(["-i", my_index, "-o", str(tmp_path / "ref.mr"), "-r",
+                  se_fastq, "--backend", "numpy"])
+        _assert_same(str(tmp_path / "ref.mr"), str(tmp_path / "o.mr"), [])
+        return
     with pytest.raises(SystemExit, match=match):
-        tcli.main(args)
+        tcli.main(args + extra)
 
 
 def test_tp_on_one_cpu_device_matches_numpy(tmp_path, my_index, se_fastq,

@@ -42,10 +42,10 @@ def test_verify_kernel_matches_reference(cuda_device, M, W):
 def test_map_single_end_on_card_vs_native(cuda_device):
     """The whole SE step on the card agrees with the native exact replay on
     every read the device resolved, and went through the kernel."""
-    from walt_tpu import native
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.index.build import build_table
-    from walt_tpu.synth import make_genome_repetitive, sample_reads
+    from walt_tpu_torch import native
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_reads
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
     pattern = get_pattern("3")
@@ -73,10 +73,10 @@ def test_map_mate_slabs_on_card_vs_native(cuda_device):
     native exact ranking and pair join on every pair the device resolved,
     and went through the kernel."""
     from chip_smoke import map_pairs_vs_exact
-    from walt_tpu import native
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.index.build import build_table
-    from walt_tpu.synth import make_genome_repetitive, sample_pairs
+    from walt_tpu_torch import native
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_pairs
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
     if native.get_lib() is None:
@@ -134,9 +134,9 @@ def test_mesh_on_card_matches_single_device(cuda_device):
     """A dp=2 x tp=2 mesh (over the cards, or virtual over one card),
     called from a worker thread: SE and PE results equal the single-device
     backend's wherever neither fell back, through the kernel."""
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.index.build import build_table
-    from walt_tpu.synth import make_genome_repetitive, sample_pairs
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_pairs
     from walt_tpu_torch.core.torch_backend import TorchBackend
     from walt_tpu_torch.parallel import make_mesh
 

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from walt_tpu.constants import get_pattern
-from walt_tpu.core.refmap import padded_seq
-from walt_tpu.index import io_walt
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.core.refmap import padded_seq
+from walt_tpu_torch.index import io_walt
 from walt_tpu.ops import device_index as jdi
 from walt_tpu_torch.ops import device_index as tdi
 

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from walt_tpu.constants import get_pattern
-from walt_tpu.index import io_walt
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.index import io_walt
 from walt_tpu_torch.core.torch_backend import TorchBackend
 from walt_tpu_torch.parallel import sharded as tsh
 
@@ -48,7 +48,7 @@ def tables(my_index):
 
 
 def _load(fq):
-    from walt_tpu.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
 
     lines = FgetsLines(fq)
     try:
@@ -118,7 +118,7 @@ def _bytes(out, suffixes):
 
 
 def _run_se(tmp_path, name, index, fastq, backend):
-    from walt_tpu.core.single_end import process_single_end
+    from walt_tpu_torch.core.single_end import process_single_end
 
     out = str(tmp_path / name)
     for f in (out, out + ".mapstats"):
@@ -129,7 +129,7 @@ def _run_se(tmp_path, name, index, fastq, backend):
 
 
 def _run_pe(tmp_path, name, index, pe_fastq, backend):
-    from walt_tpu.core.paired_end import process_paired_end
+    from walt_tpu_torch.core.paired_end import process_paired_end
 
     out = str(tmp_path / name)
     for f in (out, out + ".mapstats"):
@@ -147,7 +147,7 @@ def test_mesh_end_to_end_matches_numpy(tmp_path, monkeypatch, tmesh,
     """SE and PE through the drivers on the mesh backend: byte-identical to
     the exact host path, with the native library (PE: the mate step) and
     without it (PE: map_strand, whose slab merge runs on the mesh)."""
-    from walt_tpu import native
+    from walt_tpu_torch import native
     from walt_tpu.core.backends import NumpyBackend
 
     se_want = _run_se(tmp_path, "se_np.mr", my_index, se_fastq,
@@ -165,7 +165,7 @@ def test_mesh_end_to_end_matches_numpy(tmp_path, monkeypatch, tmesh,
 def _repeat_genome():
     """40 kbp: a 2 kbp unit repeated 15 times, then 10 kbp of random
     sequence, in one chromosome."""
-    from walt_tpu.genome import Genome
+    from walt_tpu_torch.genome import Genome
 
     rng = np.random.default_rng(41)
     seq = np.concatenate([np.tile(rng.integers(0, 4, 2000, dtype=np.uint8),
@@ -180,15 +180,22 @@ def test_mesh_runs_device_tiers_with_native(tmesh):
     native library one device leaves them to the host replay, while a mesh
     re-runs them on the device tiers (slab 64 holds the 15 copies): its
     results equal the native exact replay on every read it resolved."""
-    from walt_tpu import native
+    from walt_tpu_torch import native
     from walt_tpu.index.build import build_table
-    from walt_tpu.synth import sample_reads
+    from walt_tpu_torch.index.convert import (
+        genome_from_arrays, table_from_arrays,
+    )
+    from walt_tpu_torch.synth import sample_reads
 
     if native.get_lib() is None:
         pytest.skip("native library unavailable")
     genome = _repeat_genome()
-    se = [build_table(genome, c, PATTERN, verbose=False)
-          for c in ("CT00", "CT01")]
+    # built by walt_tpu, handed to the port as arrays
+    se = [(genome_from_arrays(g.names, g.lengths, g.start_index, g.seq,
+                              g.strand),
+           table_from_arrays(ht.counter, ht.index))
+          for g, ht in (build_table(genome, c, PATTERN, verbose=False)
+                        for c in ("CT00", "CT01"))]
     codes, lens, _ = sample_reads(genome, 512, 100, seed=43)
     single = TorchBackend(device="cpu").map_single_end(codes, lens, se, 5000,
                                                        6, PATTERN)

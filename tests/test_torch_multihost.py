@@ -42,7 +42,7 @@ def _clean_fastq(work, path, n, seed, length=80):
     """N-free reads: srand(0) is per batch (mapping.cpp:73), so with Ns two
     splits of one file would legitimately randomize differently."""
     from conftest import simulate_reads, write_fastq
-    from walt_tpu.genome import load_genome
+    from walt_tpu_torch.genome import load_genome
 
     g = load_genome([str(work / "genome.fa")])
     write_fastq(path, simulate_reads(g, np.random.default_rng(seed), n,
@@ -52,7 +52,7 @@ def _clean_fastq(work, path, n, seed, length=80):
 
 def _clean_pairs(work, tmp_path, n, seed):
     from conftest import simulate_pairs, write_fastq
-    from walt_tpu.genome import load_genome
+    from walt_tpu_torch.genome import load_genome
 
     g = load_genome([str(work / "genome.fa")])
     r1, r2 = simulate_pairs(g, np.random.default_rng(seed), n, 75,

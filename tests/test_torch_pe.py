@@ -21,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from walt_tpu.constants import get_pattern
-from walt_tpu.host.fastq import FgetsLines, load_batch
-from walt_tpu.index import io_walt
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.host.fastq import FgetsLines, load_batch
+from walt_tpu_torch.index import io_walt
 from walt_tpu.ops import device_index as jdi
 from walt_tpu.ops import pe_map as jpe
 from walt_tpu.ops import pipeline as jpipe
@@ -64,8 +64,8 @@ def both_strand_reads(work):
     """Seeded bisulfite reads from both genome strands, 30-100 bp, as
     {ag_wildcard: (codes, lens)}: C->T reads for the CT tables and their
     reverse complements (G->A reads) for the GA tables."""
-    from walt_tpu.genome import load_genome
-    from walt_tpu.synth import sample_reads
+    from walt_tpu_torch.genome import load_genome
+    from walt_tpu_torch.synth import sample_reads
 
     g = load_genome([str(work / "genome.fa")])
     codes, _, _ = sample_reads(g, 96, 100, seed=29)
@@ -357,7 +357,7 @@ def test_pe_after_se_takes_wide_rung(tmp_path, monkeypatch, my_index,
     library present); the PE run on the same backend rebuilds them on the
     wide u32 word-0 rung, holds one copy of each of the four tables, and
     both outputs stay byte-identical to the exact path."""
-    from walt_tpu import native
+    from walt_tpu_torch import native
     from walt_tpu.cli import main_map
     from walt_tpu_torch.cli import main as tmain
 
@@ -411,7 +411,7 @@ def test_pe_without_native_library(tmp_path, monkeypatch, my_index,
                                    pe_fastq):
     """Without the native library process_paired_end takes map_strand (slab
     tiers + host enumeration): byte-identical all the same."""
-    from walt_tpu import native
+    from walt_tpu_torch import native
 
     want = _numpy_pe(tmp_path, my_index, pe_fastq)
     monkeypatch.setattr(native, "get_lib", lambda: None)

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from walt_tpu.constants import get_pattern
-from walt_tpu.index import io_walt
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.index import io_walt
 from walt_tpu.ops import device_index as jdi
 from walt_tpu.ops import pipeline as jpipe
 from walt_tpu_torch.core.torch_backend import TorchBackend
@@ -40,7 +40,7 @@ def se_tables(my_index):
 
 def _reads(genome, lengths, seed):
     """Bisulfite reads of 100 bp cut to ``lengths`` (zero codes past len)."""
-    from walt_tpu.synth import sample_reads
+    from walt_tpu_torch.synth import sample_reads
 
     codes, _, _ = sample_reads(genome, len(lengths), 100, seed=seed)
     lens = np.asarray(lengths, dtype=np.int32)
@@ -135,7 +135,7 @@ def _as_tuples(s):
 def _diff_vs_numpy(table, fastq, backend, ag_wildcard=False, b=5000,
                    max_mm=6):
     from walt_tpu.core.backends import NumpyBackend
-    from walt_tpu.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
 
     g, ht = table
     pattern = get_pattern("3")
@@ -171,8 +171,8 @@ def test_small_slabs_force_fallback(table, se_fastq):
 
 @pytest.mark.parametrize("rung", ["uniq", "word0", "key16"])
 def test_map_single_end_rungs_vs_native(se_tables, monkeypatch, rung):
-    from walt_tpu import native
-    from walt_tpu.synth import sample_reads
+    from walt_tpu_torch import native
+    from walt_tpu_torch.synth import sample_reads
 
     monkeypatch.setenv("WALTX_KEY_RUNG", rung)
     pattern = get_pattern("3")
@@ -198,7 +198,7 @@ def _oom(*a, **kw):
 
 
 def _run_se(index, fastq, out, backend):
-    from walt_tpu.core.single_end import process_single_end
+    from walt_tpu_torch.core.single_end import process_single_end
 
     open(out, "w").close()
     open(out + ".mapstats", "w").close()
@@ -215,7 +215,7 @@ def test_oom_degrades_and_stays_identical(tmp_path, monkeypatch, my_index,
     memory budget) sends the batch to the exact host path; the output is
     byte-identical in every case."""
     from walt_tpu.core.backends import NumpyBackend
-    from walt_tpu.core.errors import HbmBudgetError
+    from walt_tpu_torch.core.errors import HbmBudgetError
 
     want = _run_se(my_index, se_fastq, str(tmp_path / "ref.mr"),
                    NumpyBackend())

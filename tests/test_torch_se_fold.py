@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from walt_tpu.constants import get_pattern
+from walt_tpu_torch.constants import get_pattern
 from walt_tpu.host.replay_vec import replay_single_batch
 from walt_tpu.ops import se_fold as jfold
 from walt_tpu_torch.ops import se_fold as tfold

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from walt_tpu.constants import get_pattern
+from walt_tpu_torch.constants import get_pattern
 from walt_tpu.ops import pipeline as jpipe
 from walt_tpu.ops import se_fold as jfold
 from walt_tpu.parallel import sharded as jsh
@@ -54,7 +54,7 @@ def tmesh():
 def _reads(genome, n, seed, ag=False):
     """Packed bisulfite reads of 30-100 bp (zero codes past each length);
     ``ag``: their reverse complements, G->A reads for the GA tables."""
-    from walt_tpu.synth import sample_reads
+    from walt_tpu_torch.synth import sample_reads
 
     codes, _, _ = sample_reads(genome, n, 100, seed=seed)
     lens = np.random.default_rng(seed).choice(
@@ -70,13 +70,20 @@ def synth():
     """A 120 kbp genome, host-prepared tables (3 key words) for all four
     conversions, and reads for the C->T and G->A tables."""
     from walt_tpu.index.build import build_table
-    from walt_tpu.ops.device_index import build_device_table
-    from walt_tpu.synth import make_genome
+    from walt_tpu_torch.index.convert import (
+        genome_from_arrays, table_from_arrays,
+    )
+    from walt_tpu_torch.ops.device_index import build_device_table
+    from walt_tpu_torch.synth import make_genome
 
     genome = make_genome(120_000, seed=3)
     dts = {}
     for conv in ("CT00", "CT01", "GA10", "GA11"):
+        # built by walt_tpu, handed to the port as arrays
         g, ht = build_table(genome, conv, PATTERN, verbose=False)
+        g = genome_from_arrays(g.names, g.lengths, g.start_index, g.seq,
+                               g.strand)
+        ht = table_from_arrays(ht.counter, ht.index)
         dts[conv] = build_device_table(g, ht, PATTERN, with_key_words=True)
     return dts, _reads(genome, B, 5), _reads(genome, B, 7, ag=True)
 

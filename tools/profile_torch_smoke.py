@@ -56,9 +56,9 @@ def main(out_dir: str) -> int:
     import torch
 
     import chip_smoke as cs
-    from walt_tpu.constants import get_pattern
-    from walt_tpu.host.fastq import FgetsLines, load_batch
-    from walt_tpu.index import io_walt
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.host.fastq import FgetsLines, load_batch
+    from walt_tpu_torch.index import io_walt
     from walt_tpu_torch.core.torch_backend import TorchBackend
     from walt_tpu_torch.ops import device_index as tdi
 

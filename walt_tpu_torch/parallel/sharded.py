@@ -33,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from walt_tpu.constants import SeedPattern, get_pattern
+from walt_tpu_torch.constants import SeedPattern, get_pattern
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
 from walt_tpu_torch.ops.device_index import DeviceTable
 

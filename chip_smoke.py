@@ -12,8 +12,13 @@ Phases, one line of output each (any failure raises and exits non-zero):
 2. build: compiles the CUDA kernels (csrc/) with nvcc into build/kernels/;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    card, exact equality, at the SE and PE main-path shapes and at edge
-   shapes; times both at the SE main-path shape, as device time
-   (torch.profiler) and as wall time per wrapper call (CUDA events);
+   shapes: ``verify_windows`` (K1) on random rows, and ``verify_worklist``
+   (the fused verify stage, the main path's kernel) on synthetic worklists
+   in read order with chromosome edges and verify_skip rows.  Times each at
+   the SE main-path shape, as device time (torch.profiler) and as wall time
+   per wrapper call (CUDA events); the fused stage in turns with the chain
+   it replaced (the torch ops around K1: chain, kernel, kernel, chain) and
+   with its plain version, with the device events per call of each;
 4. data: a 128 Mbp repetitive synthetic genome (about the size of the
    Arabidopsis thaliana genome, a standard WGBS organism), its WALT index,
    1,000,000 x 100 bp bisulfite reads and 500,000 x 100 bp bisulfite read
@@ -52,12 +57,17 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
 12. entry.dryrun_multichip(4): the dry run on four devices (the first card
     four times when there are fewer).
 
-The last two lines are one JSON object describing the kernels (``ms`` and
-``plain_ms`` are device time per call, ``wall_ms`` and ``plain_wall_ms``
-wall time per call; ``launches`` and ``launches_pe`` count the launches of
-the timed SE and PE CLI runs, ``launches_mesh`` and ``launches_mesh_pe``
-those of phase 11's SE and PE runs) and one JSON object
-``{"ok": true, "device": {...}}``.
+Each phase that drives the main path sets every kernel's launch count to
+0 just before and reads the counts just after; it fails unless the fused
+stage was launched.  The last two lines are one JSON object describing the
+kernels (``ms`` and ``plain_ms`` are device time per call at the SE shape,
+``wall_ms`` and ``plain_wall_ms`` wall time per call, ``bound_ms`` the
+least time the card could take for the same work from the bytes these
+inputs need at 3.35 TB/s or their integer operations, whichever is larger;
+``launches`` and ``launches_pe`` count the launches of the timed SE and PE
+CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
+and PE runs; ``chain_ms`` is the replaced chain's device time) and one JSON
+object ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +89,12 @@ MIN_DEVICE_SHARE = 0.75
 #: main-path worklist shape of the verify kernel: tier-1 worklist factor 1.5
 #: x the 131,072-read chunk, 7 words for 100 bp reads
 MAIN_M, MAIN_W = 196_608, 7
+#: reads per main-path chunk (the worklists' B)
+MAIN_B = 131_072
+#: the H100 SXM's published memory rate, and its int32 rate (64 INT32 lanes
+#: per SM: half the 67 TFLOP/s float32 rate outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 33.5e12
 #: the PE mate step's verify shape: worklist factor 3 x the 131,072-read
 #: chunk
 PE_M = 393_216
@@ -92,6 +108,22 @@ N_MESH_PAIRS = 125_000
 #: port equals walt_tpu exactly) holds 5/8; the reads past it fall back, and
 #: the PE step has no device tiers to take them (0.6849 measured on an H100)
 MIN_MESH_PE_SHARE = 0.65
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from walt_tpu_torch.ops import verify
+
+    verify.stage_launches = 0
+    verify.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count since :func:`zero_counts`."""
+    from walt_tpu_torch.ops import verify
+
+    return {"verify_worklist": verify.stage_launches,
+            "verify_windows": verify.launches}
 
 
 def say(phase: str, msg: str) -> None:
@@ -125,9 +157,10 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn``: the summed durations of
-    the device events torch.profiler records over ``reps`` calls."""
+def device_profile(fn, reps: int = 20):
+    """(mean device milliseconds, device events) per call of ``fn``: the
+    summed durations and the count of the device events torch.profiler
+    records over ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,7 +175,59 @@ def device_ms(fn, reps: int = 20) -> float:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         raise RuntimeError("torch.profiler recorded no device events")
-    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps
+    return (sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps,
+            len(evs) / reps)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn`` (:func:`device_profile`)."""
+    return device_profile(fn, reps)[0]
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the integer operations over the int32 rate."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def windows_bound(args, W: int):
+    """verify_windows' bound on these inputs: gpos, conv and lane read once,
+    the distinct genome words the windows touch, mm and win written once;
+    about 7 integer operations per word."""
+    import torch
+
+    pseq, gpos, conv, lane = args
+    M = gpos.shape[0]
+    words = ((gpos.long() & 0xFFFFFFFF) >> 4)[:, None] + torch.arange(
+        W + 1, device=gpos.device)
+    n_words = torch.unique(words.clamp_(max=pseq.shape[0] - 1)).numel()
+    n_bytes = 4 * M + 8 * M * W + 4 * n_words + 4 * M + 4 * M * W
+    return bound(n_bytes, M * (7 * W + 5))
+
+
+def stage_bound(args, kw):
+    """verify_worklist's bound on these inputs, counted once: each row's
+    three int64 indices and valid flag, the distinct index entries and
+    genome words the rows touch, the conv words, length and repeat count of
+    each distinct read, start_index, and gpos, mm (int64) and keep written;
+    about 14 integer operations per word and 60 per row."""
+    import torch
+
+    (wl_read, wl_seedi, wl_entryidx, _, conv, _, _, index, pseq,
+     start_index) = args
+    M = wl_read.shape[0]
+    W = conv.shape[1]
+    e = wl_entryidx.clamp(0, index.shape[0] - 1)
+    shifts = torch.as_tensor(kw["seeds"], device=e.device)[wl_seedi]
+    gpos = ((index[e].long() & 0xFFFFFFFF) - shifts) & 0xFFFFFFFF
+    words = (gpos >> 4)[:, None] + torch.arange(W + 1, device=e.device)
+    n_words = torch.unique(words.clamp_(max=pseq.shape[0] - 1)).numel()
+    n_entries = torch.unique(e).numel()
+    n_reads = torch.unique(wl_read).numel()
+    n_bytes = (25 * M + 4 * n_entries + 4 * n_words
+               + n_reads * (8 * W + 16) + 4 * start_index.shape[0] + 17 * M)
+    return bound(n_bytes, M * (14 * W + 60))
 
 
 def verify_inputs(rng, M: int, W: int, Wg: int, device):
@@ -162,6 +247,101 @@ def verify_inputs(rng, M: int, W: int, Wg: int, device):
     lens = torch.from_numpy(rng.integers(0, W * 16 + 1, M))
     lane = packing.len_lane_masks(lens, W).numpy().astype(np.uint32)
     return [packing.from_np(a, device) for a in (pseq, gpos, conv, lane)]
+
+
+def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
+                 n_chroms: int = 4, n_index: int = 1 << 16,
+                 seeds=(0, 1, 2), key16: bool = False, check: bool = True,
+                 valid_share: float = 0.85):
+    """Inputs of ``verify.verify_worklist``: a synthetic worklist of M rows
+    over B reads of W words, in read order (valid rows first, then the
+    invalid tail on read 0, as the pipeline's compaction leaves them),
+    against a random Wg-word genome of ``n_chroms`` chromosomes.  Index
+    entries sit at chromosome starts (wrapped ``ok_head`` rows, gpos >= 2^31
+    at the genome start), at chromosome ends (``ok_tail``), at the genome
+    end (window clamp) and past it; half the reads copy the genome window of
+    their first row with a few mismatches, so ``mm <= max_mm``, the
+    verify_skip lanes (base 70 on shift 2) and the cared check all decide
+    some rows; lengths run from 0 (reads shorter than 38 bp included) to
+    16 W.  ``check``: the window cared check runs (``key16``: from cared
+    position kw + 8).  Returns (args, kwargs) of the call."""
+    import numpy as np
+    import torch
+
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.ops import packing, pipeline
+
+    pattern = get_pattern("3")
+    plen, S = pattern.pattern_len, len(seeds)
+    G = Wg * 16 - 32  # genome bases; the last words clamp windows
+    cuts = np.sort(rng.choice(np.arange(1, G), n_chroms - 1, replace=False))
+    si = np.concatenate([[0], cuts, [G]]).astype(np.uint32)
+    pseq = rng.integers(0, 1 << 32, Wg, dtype=np.uint32)
+    index = rng.integers(0, G, n_index).astype(np.uint32)
+    k = max(1, n_index // 16)
+    ch = rng.integers(0, n_chroms, 2 * k)
+    index[:k] = si[ch[:k]] + rng.integers(0, 3, k)  # chromosome starts
+    index[k:2 * k] = np.maximum(si[ch[k:] + 1].astype(np.int64)
+                                - rng.integers(1, 120, k), 0)  # ends
+    index[2 * k:2 * k + 8] = [0, 1, G - 1, G - 5, Wg * 16 - 3,
+                              0x80000000, 0x9000000F, 0xFFFFFFF1]
+    rng.shuffle(index[8:])
+
+    # rows as the compaction orders them: by read, then seed, then bucket
+    # entry; the rows of one (read, seed) are consecutive index entries
+    n_valid = int(valid_share * M)
+    wl_read = np.zeros(M, np.int64)
+    wl_seedi = np.zeros(M, np.int64)
+    key = np.sort(rng.integers(0, B, n_valid) * S + rng.integers(0, S, n_valid))
+    wl_read[:n_valid], wl_seedi[:n_valid] = key // S, key % S
+    start = np.r_[True, key[1:] != key[:-1]]
+    run = np.arange(n_valid) - np.maximum.accumulate(
+        np.where(start, np.arange(n_valid), 0))
+    wl_entryidx = np.full(M, -1, np.int64)
+    wl_entryidx[:n_valid] = rng.integers(0, n_index, n_valid)[
+        np.maximum.accumulate(np.where(start, np.arange(n_valid), 0))] + run
+    wl_entryidx[n_valid:] = wl_entryidx[0]
+    if M > 4:
+        wl_entryidx[1:3] = [-1, n_index + 5]  # clamped gathers
+    wl_valid = np.arange(M) < n_valid
+
+    Lmax = 16 * W
+    lens = rng.integers(0, Lmax + 1, B)
+    lens[rng.random(B) < 0.4] = min(100, Lmax)
+    short = rng.random(B) < 0.1
+    lens[short] = rng.integers(0, 38, int(short.sum()))
+    repeats = np.minimum((lens - plen + 1) // plen, pattern.max_repeats())
+
+    conv = rng.integers(0, 1 << 32, (B, W), dtype=np.uint32).astype(np.int64)
+    first = np.flatnonzero(np.r_[True, wl_read[1:n_valid]
+                                 != wl_read[:n_valid - 1]]) if n_valid else []
+    own = [m for m in first if rng.random() < 0.5]
+    if own:
+        own = np.asarray(own)
+        ent = index[np.clip(wl_entryidx[own], 0, n_index - 1)].astype(np.int64)
+        gpos = (ent - np.asarray(seeds)[wl_seedi[own]]) & 0xFFFFFFFF
+        win = packing.window_words(packing.from_np(pseq),
+                                   torch.from_numpy(gpos), W).numpy()
+        for i in range(win.shape[0]):  # a few mismatches, base 70 often
+            for pos in rng.integers(0, Lmax, rng.integers(0, 4)).tolist() + (
+                    [70] if Lmax > 70 and rng.random() < 0.5 else []):
+                win[i, pos // 16] ^= 1 << (30 - 2 * (pos % 16))
+        conv[wl_read[own]] = win
+    cared = (pipeline.window_cared_mask(pattern, seeds, W, key16)
+             if check else None)
+    cwt = pattern.cared_weight
+    kw = dict(seeds=tuple(seeds), verify_skip=pattern.verify_skip,
+              cared_mask=cared, cared_off=pattern.cared[:cwt], max_mm=6,
+              plen=plen, cwt=cwt,
+              n_cared=min(pattern.cared_size, pattern.key_weight + 48))
+    dev = torch.device(device)
+    t64 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (wl_read, wl_seedi, wl_entryidx)]
+    args = (*t64, torch.from_numpy(wl_valid).to(dev),
+            torch.from_numpy(conv).to(dev), torch.from_numpy(lens).to(dev),
+            torch.from_numpy(repeats).to(dev),
+            *(packing.from_np(a, dev) for a in (index, pseq, si)))
+    return args, kw
 
 
 def check_verify_kernel(device, Wg: int):
@@ -199,6 +379,7 @@ def check_verify_kernel(device, Wg: int):
     pe_k, pe_p = (device_ms(lambda f=f: f(*pe_args, MAIN_W))
                   for f in (verify.verify_windows,
                             verify.verify_windows_reference))
+    k_bound = windows_bound(args, MAIN_W)
     say("kernel", f"verify_windows == plain on {len(shapes)} shapes "
                   f"(sh 0..30, end clamp, gpos >= 2^31); at M={MAIN_M} "
                   f"W={MAIN_W}: device time (torch.profiler) kernel "
@@ -208,9 +389,97 @@ def check_verify_kernel(device, Wg: int):
                   f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain "
                   f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us; at the PE shape "
                   f"M={PE_M}: device time kernel {pe_k * 1e3:.1f} us, plain "
-                  f"{pe_p * 1e3:.1f} us per call")
-    return (err, (dk1 + dk2) / 2, (dp1 + dp2) / 2, (k1 + k2) / 2,
-            (p1 + p2) / 2)
+                  f"{pe_p * 1e3:.1f} us per call; bound at M={MAIN_M} "
+                  f"{k_bound[0] * 1e3:.2f} us ({k_bound[1]})")
+    return dict(max_abs_err=err, ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2,
+                wall_ms=(k1 + k2) / 2, plain_wall_ms=(p1 + p2) / 2,
+                bound_ms=k_bound[0], bound_by=k_bound[1], pe_ms=pe_k,
+                pe_plain_ms=pe_p)
+
+
+#: fused-stage shapes (M, B, W, stage_inputs options): the SE and PE main
+#: path, then edges: key16's and exact_b's cared checks, phase A's one seed,
+#: W from 1 to 16 (template instances) and 17 and 63 (the runtime-W
+#: instance), more chromosome starts than shared memory holds (2048),
+#: reads too sparse for the staged conv range, a ragged last block
+STAGE_SHAPES = [
+    (MAIN_M, MAIN_B, MAIN_W, {}), (PE_M, MAIN_B, MAIN_W, {}),
+    (5003, 3000, 7, dict(key16=True)), (5003, 3000, 7, dict(check=False)),
+    (5003, 3000, 7, dict(seeds=(0,))), (5003, 3000, 1, {}),
+    (5003, 3000, 3, {}), (5003, 3000, 13, {}), (5003, 3000, 16, {}),
+    (4097, 2000, 17, {}), (4097, 2000, 63, {}),
+    (2000, 1000, 7, dict(n_chroms=3000)), (600, 60_000, 7, {}),
+    (255, 100, 7, {}),
+]
+
+
+def check_stage_kernel(device, Wg: int):
+    """Phase 3, the fused stage: verify_worklist == its plain version
+    exactly on every STAGE_SHAPES entry; at the SE shape, device and wall
+    time of the kernel in turns with the chain it replaced (the port's
+    earlier torch ops around K1), and of its plain version, with device
+    events per call; device time at the PE shape.  Returns the kernel's
+    numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from walt_tpu_torch.ops import verify
+
+    rng = np.random.default_rng(2025)
+    main = {}
+    for M, B, W, opts in STAGE_SHAPES:
+        big = M >= MAIN_M
+        args, kw = stage_inputs(rng, M, B, W, Wg if big else 1 << 16, device,
+                                n_index=1 << 24 if big else 1 << 16, **opts)
+        got = verify.verify_worklist(*args, **kw)
+        want = verify.verify_worklist_reference(
+            *args, **kw, windows=verify.verify_windows_reference)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("gpos", "mm", "keep"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"verify_worklist {name} != plain at "
+                                     f"M={M} B={B} W={W} {opts}: {bad} rows")
+        if big:
+            main[M] = (args, kw)
+    args, kw = main[MAIN_M]
+    kern = lambda: verify.verify_worklist(*args, **kw)  # noqa: E731
+    chain = lambda: verify.verify_worklist_reference(*args, **kw)  # noqa: E731
+    plain = lambda: verify.verify_worklist_reference(  # noqa: E731
+        *args, **kw, windows=verify.verify_windows_reference)
+    c1, k1, k2, c2 = (device_profile(f) for f in (chain, kern, kern, chain))
+    p1 = device_profile(plain)
+    wc1, wk1, wk2, wc2 = (cuda_ms(f) for f in (chain, kern, kern, chain))
+    wp1 = cuda_ms(plain)
+    pe_args, pe_kw = main[PE_M]
+    pe_k = device_ms(lambda: verify.verify_worklist(*pe_args, **pe_kw))
+    pe_c = device_ms(lambda: verify.verify_worklist_reference(*pe_args,
+                                                              **pe_kw))
+    b_ms, b_by = stage_bound(args, kw)
+    pe_b_ms, _ = stage_bound(pe_args, pe_kw)
+    valid = float(args[3].float().mean())
+    say("kernel", f"verify_worklist == plain on {len(STAGE_SHAPES)} shapes "
+                  f"(SE, PE, key16, exact_b, seed 0, W 1/3/7/13/16/17/63, "
+                  f"3000 chromosomes, sparse reads, ragged block); at "
+                  f"M={MAIN_M} B={MAIN_B} W={MAIN_W} ({valid:.2f} valid): "
+                  f"device time (torch.profiler) kernel "
+                  f"{k1[0] * 1e3:.1f}/{k2[0] * 1e3:.1f} us in "
+                  f"{k1[1]:.0f} device events, the replaced chain "
+                  f"{c1[0] * 1e3:.1f}/{c2[0] * 1e3:.1f} us in {c1[1]:.0f} "
+                  f"events, plain {p1[0] * 1e3:.1f} us in {p1[1]:.0f} events "
+                  f"per call; wall per call (CUDA events) kernel "
+                  f"{wk1 * 1e3:.1f}/{wk2 * 1e3:.1f} us, chain "
+                  f"{wc1 * 1e3:.1f}/{wc2 * 1e3:.1f} us, plain "
+                  f"{wp1 * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us ({b_by}), "
+                  f"kernel at {100 * b_ms / ((k1[0] + k2[0]) / 2):.0f}% of "
+                  f"it; at the PE shape M={PE_M}: kernel {pe_k * 1e3:.1f} us, "
+                  f"chain {pe_c * 1e3:.1f} us, bound {pe_b_ms * 1e3:.2f} us")
+    return dict(max_abs_err=0, ms=(k1[0] + k2[0]) / 2, plain_ms=p1[0],
+                chain_ms=(c1[0] + c2[0]) / 2, wall_ms=(wk1 + wk2) / 2,
+                plain_wall_ms=wp1, chain_wall_ms=(wc1 + wc2) / 2,
+                bound_ms=b_ms, bound_by=b_by, events=k1[1],
+                chain_events=c1[1], pe_ms=pe_k, pe_chain_ms=pe_c,
+                pe_bound_ms=pe_b_ms)
 
 
 def build_data(data_dir: str, n_bases: int, n_reads: int, n_pairs: int,
@@ -290,12 +559,12 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     backend.table_budget_hint = 2
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    verify.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     pos, times, minus, mm, fb = backend.map_single_end(
         codes, lens, tables, 5000, 6, pattern)
     t1 = time.perf_counter()
-    launches = verify.launches
+    launches = counts()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
@@ -312,7 +581,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     share = float(ok.mean())
     if backend.total_reads != n:
         raise AssertionError(f"total_reads {backend.total_reads} != {n}")
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the mapping never launched the verify kernel")
     if share < min_share:
         raise AssertionError(f"device-resolved share {share:.4f} < "
@@ -355,12 +624,12 @@ def end_to_end(index: str, fastq: str, device, n_reads: int):
     if cli.main(argv) != 0:  # warm-up: kernel load, first allocations
         raise AssertionError("the CLI warm-up run failed")
     perf.reset()
-    verify.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
         raise AssertionError("the timed CLI run failed")
     wall = time.perf_counter() - t0
-    launches = verify.launches
+    launches = counts()
     stages = perf.snapshot()
 
     ref = os.path.join(work, "exact.mr")
@@ -372,7 +641,7 @@ def end_to_end(index: str, fastq: str, device, n_reads: int):
             if a.read() != b.read():
                 raise AssertionError(f"CLI output{suffix or ' (MR)'} differs "
                                      f"from the exact host path")
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the CLI run never launched the verify kernel")
     say("e2e", f"CLI {n_reads / wall:.1f} reads/s ({wall:.2f} s wall for "
                f"{n_reads} reads, tables included), verify launches "
@@ -405,14 +674,14 @@ def map_pairs_vs_exact(backend, mates, tables, chrom_start):
     top_k, frag_range, b, max_mm = 50, 1000, 5000, 6
     (codes1, lens1), (codes2, lens2) = mates
     lens1, lens2 = lens1.astype(np.int32), lens2.astype(np.int32)
-    verify.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     s1, fb1 = backend.map_mate_slabs(codes1, lens1, tables[0], False, b,
                                      max_mm, pattern)
     s2, fb2 = backend.map_mate_slabs(codes2, lens2, tables[1], True, b,
                                      max_mm, pattern)
     t1 = time.perf_counter()
-    launches = verify.launches
+    launches = counts()
     skip = fb1 | fb2
     fin = native.pe_finalize(s1 + s2, skip.astype(np.uint8), lens1, lens2,
                              chrom_start, top_k, frag_range, max_mm,
@@ -436,7 +705,7 @@ def map_pairs_vs_exact(backend, mates, tables, chrom_start):
         if n_bad:
             raise AssertionError(f"finalized {k} != exact path on {n_bad} "
                                  f"resolved pairs")
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the PE mapping never launched the verify "
                              "kernel")
     return float(ok.mean()), launches, t1 - t0, t3 - t2
@@ -524,12 +793,12 @@ def pe_end_to_end(index: str, pe, device, n_pairs: int):
     if cli.main(argv) != 0:  # warm-up: kernel load, first allocations
         raise AssertionError("the PE CLI warm-up run failed")
     perf.reset()
-    verify.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
         raise AssertionError("the timed PE CLI run failed")
     wall = time.perf_counter() - t0
-    launches = verify.launches
+    launches = counts()
     stages = perf.snapshot()
 
     ref = os.path.join(work, "exact_pe.mr")
@@ -541,7 +810,7 @@ def pe_end_to_end(index: str, pe, device, n_pairs: int):
             if a.read() != b.read():
                 raise AssertionError(f"PE CLI output{suffix or ' (MR)'} "
                                      f"differs from the exact host path")
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the PE CLI run never launched the verify "
                              "kernel")
     say("pe e2e", f"CLI {n_pairs / wall:.1f} pairs/s ({wall:.2f} s wall for "
@@ -645,7 +914,7 @@ def tier_breakdown(backend, call) -> str:
 
     def chunks(codes, lens, pattern, chunk=None):
         passes.append(dict(reads=codes.shape[0], chunks=0,
-                           launches=verify.launches,
+                           launches=verify.stage_launches,
                            t0=time.perf_counter()))
         return real_chunks(codes, lens, pattern, chunk)
 
@@ -658,7 +927,7 @@ def tier_breakdown(backend, call) -> str:
         out = real_fetch(tensors)
         p = passes[-1]
         p["secs"] = time.perf_counter() - p["t0"]
-        p["launches"] = verify.launches - p["launches"]
+        p["launches"] = verify.stage_launches - p["launches"]
         return out
 
     backend._chunks, backend._fetch = chunks, fetch
@@ -694,10 +963,10 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
     single = TorchBackend(device=device)
     devices = list(dict.fromkeys(mesh.distinct() + [single.device]))
     peak_gib(devices, reset=True)
-    verify.launches = 0
+    zero_counts()
     (pos, times, minus, mm, fb), t_mesh = timed(lambda: mesh_b.map_single_end(
         codes, lens, tables, 5000, 6, pattern))
-    launches = verify.launches
+    launches = counts()
     peak = peak_gib(devices)
     s_out, t_single = timed(lambda: single.map_single_end(
         codes, lens, tables, 5000, 6, pattern))
@@ -721,7 +990,7 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
         if (got[both] != one[both]).any():
             raise AssertionError(f"mesh {name} != single-device backend")
     share, s_share = float(ok.mean()), float((~s_out[4]).mean())
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the mesh SE step never launched the kernel")
     if share < min_share:
         raise AssertionError(f"mesh device-resolved share {share:.4f} < "
@@ -773,7 +1042,7 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
                 if (st[k][ok] != sst[k][ok]).any():
                     raise AssertionError(f"mesh PE {k} != single device")
         s_fb |= sfb
-    if launches <= 0:
+    if launches["verify_worklist"] <= 0:
         raise AssertionError("the mesh PE step never launched the kernel")
     if share < min_share:
         raise AssertionError(f"mesh device-resolved pair share {share:.4f} "
@@ -824,18 +1093,19 @@ def mesh_end_to_end(index, se_sub, pe_sub, mesh_b, virtual: bool,
     process_paired_end(index, pe_sub[0], pe_sub[1], ref_pe,
                        backend=AllFallbackPE())
     mesh_b.reset_adaptive()
-    verify.launches = 0
+    zero_counts()
     _, wall = timed(lambda: process_single_end(index, se_sub, out,
                                                backend=mesh_b))
-    launches = verify.launches
+    launches = counts()
     same_bytes(out, ref, "mesh SE")
     mesh_b.reset_adaptive()
-    verify.launches = 0
+    zero_counts()
     _, wall_pe = timed(lambda: process_paired_end(
         index, pe_sub[0], pe_sub[1], out_pe, backend=mesh_b))
-    launches_pe = verify.launches
+    launches_pe = counts()
     same_bytes(out_pe, ref_pe, "mesh PE")
-    if launches <= 0 or launches_pe <= 0:
+    if (launches["verify_worklist"] <= 0
+            or launches_pe["verify_worklist"] <= 0):
         raise AssertionError("a mesh end-to-end run never launched the "
                              "verify kernel")
     cli_note = "single card: the CLI's --tp has no effect, not run"
@@ -882,13 +1152,14 @@ def main() -> int:
     t0 = time.perf_counter()
     log = kernels.build()
     kernels.library()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
     say("build", f"nvcc {time.perf_counter() - t0:.1f} s "
                  f"{'(up to date)' if not log else ''}{'; '.join(ptxas)}")
 
     # a genome-sized pseq: 128 Mbp -> 8M packed words
-    err, k_ms, p_ms, k_wall, p_wall = check_verify_kernel(
-        device, Wg=GENOME_BASES // 16)
+    k1 = check_verify_kernel(device, Wg=GENOME_BASES // 16)
+    stage = check_stage_kernel(device, Wg=GENOME_BASES // 16)
     index, fastq, pe = build_data(DATA, GENOME_BASES, N_READS, N_PAIRS,
                                   READ_LEN)
     backend_parity(index, fastq, device, MIN_DEVICE_SHARE)
@@ -911,18 +1182,25 @@ def main() -> int:
         index, se_sub, pe_sub, mesh_b, virtual, N_MESH_READS, N_MESH_PAIRS)
     mesh_dryrun()
 
-    if "jax" in sys.modules:
-        raise AssertionError("walt_tpu_torch imported jax")
-    print(json.dumps({"kernels": [{
-        "name": "verify_windows", "route": "cuda",
-        "source": "walt_tpu_torch/csrc/verify.cu",
-        "replaces": "walt_tpu/ops/pallas_verify.py:93",
-        "launches": launches, "launches_pe": launches_pe,
-        "launches_mesh": launches_mesh, "launches_mesh_pe": launches_mesh_pe,
-        "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms,
-        "wall_ms": k_wall, "plain_wall_ms": p_wall,
-    }]}), flush=True)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "walt_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded[:5]}")
+    runs = dict(launches=launches, launches_pe=launches_pe,
+                launches_mesh=launches_mesh,
+                launches_mesh_pe=launches_mesh_pe)
+
+    def entry(name, source, nums, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "walt_tpu/ops/pallas_verify.py:93",
+                **{k: v[name] for k, v in runs.items()}, **nums,
+                "library_ms": None, **extra}
+
+    print(json.dumps({"kernels": [
+        entry("verify_worklist", "walt_tpu_torch/csrc/verify_stage.cu", stage,
+              stage="walt_tpu/ops/pipeline.py:555"),
+        entry("verify_windows", "walt_tpu_torch/csrc/verify.cu", k1),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

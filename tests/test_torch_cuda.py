@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import verify_inputs
+from chip_smoke import stage_inputs, verify_inputs
 from walt_tpu_torch.ops import verify
 
 
@@ -39,6 +39,29 @@ def test_verify_kernel_matches_reference(cuda_device, M, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,B,W,opts", [
+    (196_608, 131_072, 7, {}), (393_216, 131_072, 7, {}),
+    (5003, 3000, 7, dict(key16=True)), (5003, 3000, 7, dict(check=False)),
+    (5003, 3000, 1, {}), (5003, 3000, 16, {}), (4097, 2000, 17, {}),
+    (4097, 2000, 63, {}), (2000, 1000, 7, dict(n_chroms=3000)),
+    (600, 60_000, 7, {}), (255, 100, 7, dict(seeds=(0,))),
+])
+def test_verify_stage_kernel_matches_reference(cuda_device, M, B, W, opts):
+    """The fused verify stage on the card equals its plain PyTorch version
+    exactly, one launch per call."""
+    rng = np.random.default_rng(M + B + W)
+    args, kw = stage_inputs(rng, M, B, W, 1 << 16, cuda_device, **opts)
+    before = verify.stage_launches
+    got = verify.verify_worklist(*args, **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert verify.stage_launches == before + 1
+    want = verify.verify_worklist_reference(
+        *args, **kw, windows=verify.verify_windows_reference)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_map_single_end_on_card_vs_native(cuda_device):
     """The whole SE step on the card agrees with the native exact replay on
     every read the device resolved, and went through the kernel."""
@@ -54,10 +77,10 @@ def test_map_single_end_on_card_vs_native(cuda_device):
               for c in ("CT00", "CT01")]
     codes, lens, _ = sample_reads(genome, 5000, 100, seed=23)
     backend = TorchBackend(device=cuda_device, small_chunk=1024)
-    before = verify.launches
+    before = verify.stage_launches
     pos, times, minus, mm, fb = backend.map_single_end(
         codes, lens, tables, 5000, 6, pattern)
-    assert verify.launches > before
+    assert verify.stage_launches > before
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
     if ref is None:
         pytest.skip("native library unavailable")
@@ -90,7 +113,7 @@ def test_map_mate_slabs_on_card_vs_native(cuda_device):
     share, launches, _, _ = map_pairs_vs_exact(
         backend, [(c1, l1), (c2, l2)], tables,
         genome.start_index.astype(np.uint32))
-    assert launches > 0
+    assert launches["verify_worklist"] > 0
     assert share > 0.75
 
 
@@ -151,10 +174,10 @@ def test_mesh_on_card_matches_single_device(cuda_device):
     c1, l1, c2, l2 = sample_pairs(genome, 3000, 100, seed=23)
     mesh_b = TorchBackend(mesh=mesh, small_chunk=1024)
     single = TorchBackend(device=cuda_device, small_chunk=1024)
-    before = verify.launches
+    before = verify.stage_launches
     got = _in_thread(lambda: mesh_b.map_single_end(c1, l1, tables[0], 5000,
                                                    6, pattern))
-    assert verify.launches > before
+    assert verify.stage_launches > before
     want = single.map_single_end(c1, l1, tables[0], 5000, 6, pattern)
     ok = ~(got[4] | want[4])
     assert ok.mean() > 0.75

@@ -164,3 +164,312 @@ def test_kernel_build_dir(tmp_path, monkeypatch, checkout):
             tmp_path / "home" / ".cache" / "walt_tpu_torch" / "kernels")
     assert mod.BUILD_DIR == str(want)
     assert os.path.dirname(mod.LIB_PATH) == str(want)
+
+
+# ---- the fused verify stage (verify_worklist, csrc/verify_stage.cu) ----
+
+_STAGE_SHIM = r"""
+#include "verify_stage_row.h"
+template <int kW> static void rows(const waltx::StageArgs& a) {
+  const int W = kW > 0 ? kW : a.W;
+  for (int64_t m = 0; m < a.M; ++m) {
+    const int64_t r = a.wl_read[m], seedi = a.wl_seedi[m];
+    const auto f = waltx::stage_fetch<kW>(a, a.shifts, seedi,
+                                          a.wl_entryidx[m]);
+    waltx::stage_finish<kW>(a, f, a.start_index, a.cared_mask, a.cared_off,
+                            a.conv + r * W, seedi, a.wl_valid[m] != 0,
+                            a.lens[r], a.repeats[r], a.gpos + m, a.mm + m,
+                            a.keep + m);
+  }
+}
+extern "C" int stage_args_size() { return (int)sizeof(waltx::StageArgs); }
+extern "C" void stage_rows(const waltx::StageArgs* a, int fixed) {
+  if (!fixed) { rows<0>(*a); return; }
+  switch (a->W) {
+    case 1: rows<1>(*a); break;
+    case 3: rows<3>(*a); break;
+    case 5: rows<5>(*a); break;
+    case 7: rows<7>(*a); break;
+    case 13: rows<13>(*a); break;
+    case 16: rows<16>(*a); break;
+    default: rows<0>(*a);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def stage_lib(tmp_path_factory):
+    """The fused stage's per-row body (csrc/verify_stage_row.h) built with
+    g++ into a library that runs it over every row on the CPU."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ unavailable")
+    d = tmp_path_factory.mktemp("verify_stage_row")
+    src, so = d / "shim.cpp", d / "libverify_stage_row.so"
+    src.write_text(_STAGE_SHIM)
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                    "-I", kernels.CSRC, "-o", str(so), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.stage_rows.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.stage_rows.restype = None
+    lib.stage_args_size.restype = ctypes.c_int
+    return lib
+
+
+def _stage_gxx(lib, args, kw, fixed=True):
+    """The g++-built row body over every row of ``args`` (CPU tensors)."""
+    M = args[0].shape[0]
+    outs = (torch.empty(M, dtype=torch.int64),
+            torch.empty(M, dtype=torch.int64),
+            torch.empty(M, dtype=torch.bool))
+    a = verify.stage_args(args, outs, **kw)
+    lib.stage_rows(ctypes.addressof(a), int(fixed))
+    return outs
+
+
+def _assert_stage_equal(got, want, what=""):
+    for name, g, w in zip(("gpos", "mm", "keep"), got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), f"{what} {name}"
+
+
+def test_stage_args_layout_matches_header(stage_lib):
+    assert stage_lib.stage_args_size() == ctypes.sizeof(verify.StageArgs)
+
+
+# (M, B, W, stage_inputs options): the SE-like shape scaled down, every
+# fixed W the tests instantiate, runtime W (20, 63, and 7 forced), key16's
+# earlier cared check, the exact_b path (no cared check), phase A's one
+# seed, many chromosomes, sparse reads
+STAGE_CASES = {
+    "word0": (3000, 2000, 7, {}),
+    "key16": (3000, 2000, 7, dict(key16=True)),
+    "exact_b": (3000, 2000, 7, dict(check=False)),
+    "seed0": (2000, 2000, 7, dict(seeds=(0,))),
+    "w1": (900, 600, 1, {}),
+    "w3": (900, 600, 3, {}),
+    "w13": (900, 600, 13, {}),
+    "w16": (900, 600, 16, dict(key16=True)),
+    "w20_runtime": (900, 600, 20, {}),
+    "w63_runtime": (700, 400, 63, {}),
+    "chroms3000": (2000, 1000, 7, dict(n_chroms=3000)),
+    "sparse_reads": (600, 60_000, 7, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_stage_row_body_gxx_matches_reference(stage_lib, case):
+    """Randomized rows: shifts 0..30, the window clamp at the genome end,
+    gpos >= 2^31, wrapped ok_head rows, ok_tail rows, verify_skip rows,
+    reads shorter than 38 bp, key16 and exact_b cared checks."""
+    M, B, W, opts = STAGE_CASES[case]
+    rng = np.random.default_rng(abs(hash(case)) % 2**32)
+    from chip_smoke import stage_inputs
+
+    args, kw = stage_inputs(rng, M, B, W, 4096, "cpu", **opts)
+    want = verify.verify_worklist_reference(
+        *args, **kw, windows=verify.verify_windows_reference)
+    _assert_stage_equal(_stage_gxx(stage_lib, args, kw), want, case)
+    if W == 7:  # the runtime-W instance on the same rows
+        _assert_stage_equal(_stage_gxx(stage_lib, args, kw, fixed=False),
+                            want, case + " runtime")
+    keep, mm = want[2], want[1]
+    assert 0 < int(keep.sum()) < M  # both outcomes occur
+    assert int((mm <= kw["max_mm"]).sum()) > int(keep.sum()) or case in (
+        "exact_b", "seed0")
+
+
+def test_stage_reference_is_the_wrapper_on_cpu():
+    """On CPU tensors verify_worklist is its plain version and launches
+    nothing; it refuses what the kernel does not take."""
+    rng = np.random.default_rng(3)
+    from chip_smoke import stage_inputs
+
+    args, kw = stage_inputs(rng, 500, 300, 7, 1024, "cpu")
+    before = verify.stage_launches
+    _assert_stage_equal(verify.verify_worklist(*args, **kw),
+                        verify.verify_worklist_reference(*args, **kw))
+    assert verify.stage_launches == before
+    bad = list(args)
+    bad[0] = args[0].to(torch.int32)
+    with pytest.raises(ValueError, match="wl_read"):
+        verify.verify_worklist(*bad, **kw)
+    bad = list(args)
+    bad[4] = args[4][:, :3].contiguous()
+    with pytest.raises(ValueError, match="cared_mask"):
+        verify.verify_worklist(*bad, **kw)
+    bad = list(args)
+    bad[9] = args[9].to(torch.int64)
+    with pytest.raises(ValueError, match="start_index"):
+        verify.verify_worklist(*bad, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        verify.verify_worklist(*(t.to("meta") for t in args), **kw)
+
+
+# ---- the stage inside map_strand_core, in every mode, against walt_tpu ----
+
+MODES = ["uniq", "word0", "key16", "exact_b", "emit_wl", "routed"]
+
+
+def _mode_tables(dt, ht, pattern, mode):
+    """(jax tables, torch tables, extra kwargs of each) of one mode."""
+    import jax.numpy as jnp
+
+    from walt_tpu.ops import device_index as jdi
+    from walt_tpu_torch.ops import device_index as tdi
+
+    order = ("pseq", "counter", "index", "key_words", "start_index",
+             "bucket_flagged")
+    jt = {k: jnp.asarray(np.asarray(getattr(dt, k))) for k in order
+          if k != "key_words"}
+    tt = tdi.place_table(dt, "cpu")
+    jx, tx = {}, {}
+    if mode in ("uniq", "emit_wl"):
+        uw, uo, uc, bits = tdi.build_uniq_device(
+            tt["pseq"], tt["index"], tt["counter"], pattern)
+        tx = dict(uniq_words=uw, uniq_off=uo, uniq_counter=uc,
+                  uniq_bits=bits)
+        ju = jdi.build_uniq_device(jt["pseq"], jt["index"], jt["counter"],
+                                   pattern)
+        jx = dict(uniq_words=ju[0], uniq_off=ju[1], uniq_counter=ju[2],
+                  uniq_bits=ju[3])
+        jt["key_words"] = jnp.zeros((1, 1), jnp.uint32)
+        tt["key_words"] = torch.zeros((1, 1), dtype=torch.int32)
+    elif mode == "key16":
+        jt["key_words"] = jdi.build_key16_device(jt["pseq"], ht.index,
+                                                 pattern)
+        tt["key_words"] = tdi.build_key16_device(tt["pseq"], tt["index"],
+                                                 pattern)
+    else:
+        n = 3 if mode == "exact_b" else 1
+        jt["key_words"] = jdi.build_key_words_device(
+            jt["pseq"], ht.index, pattern, n_key_words=n)
+        tt["key_words"] = tdi.build_key_words_device(
+            tt["pseq"], tt["index"], pattern, n_key_words=n)
+    return ([jt[k] for k in order], [tt[k] for k in order], jx, tx)
+
+
+def _routed_tables(dt, pattern):
+    """Shard 0 of a tp=2 uniq split, for key_base + tp_route."""
+    import jax.numpy as jnp
+
+    from walt_tpu_torch.ops import packing as tp
+    from walt_tpu_torch.parallel import sharded as tsh
+
+    st = tsh.shard_device_table(dt, 2, accel="uniq")
+    table = [st.pseq, st.counter[0], st.index[0], np.zeros((1, 1), np.uint32),
+             st.start_index, st.bucket_flagged[0]]
+    uniq = [st.uniq_words[0], st.uniq_off[0], st.uniq_counter[0]]
+
+    def tor(a):
+        return torch.from_numpy(a) if a.dtype == np.uint8 else tp.from_np(a)
+
+    names = ("uniq_words", "uniq_off", "uniq_counter")
+    jx = dict(zip(names, (jnp.asarray(a) for a in uniq)),
+              uniq_bits=st.uniq_bits, key_base=int(st.key_base[0]),
+              tp_route=2)
+    tx = dict(zip(names, (tor(a) for a in uniq)), uniq_bits=st.uniq_bits,
+              key_base=int(st.key_base[0]), tp_route=2)
+    return ([jnp.asarray(a) for a in table], [tor(a) for a in table], jx, tx)
+
+
+@pytest.fixture(scope="module")
+def mode_runs(my_index):
+    """{mode: (walt_tpu's map_strand_core outputs, the port's, the port's
+    verify_worklist calls as (args, kwargs, outputs))}, computed on first
+    use."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index import io_walt
+    from walt_tpu_torch.ops import device_index as tdi
+    from walt_tpu_torch.synth import sample_reads
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(my_index)
+    cache = {}
+
+    def run(mode):
+        if mode in cache:
+            return cache[mode]
+        import jax.numpy as jnp
+
+        from walt_tpu.ops import pipeline as jpipe
+        from walt_tpu_torch.ops import pipeline as tpipe
+
+        ag = mode == "emit_wl"
+        g, ht = io_walt.read_table_cached(
+            my_index + ("_GA10" if ag else "_CT00"), gm)
+        dt = tdi.build_device_table(g, ht, pattern,
+                                    with_key_words=mode == "routed")
+        codes, _, _ = sample_reads(g, 96, 100, seed=61)
+        lens = np.random.default_rng(62).choice(
+            [100, 100, 90, 80, 45, 30], 96).astype(np.int32)
+        if ag:
+            codes = np.ascontiguousarray((3 - codes)[:, ::-1])
+        codes[np.arange(100)[None, :] >= lens[:, None]] = 0
+        preads = packing.pack_codes_np(np.pad(codes, ((0, 0), (0, 12))))
+        jtab, ttab, jx, tx = (_routed_tables(dt, pattern) if mode == "routed"
+                              else _mode_tables(dt, ht, pattern, mode))
+        b = 3 if mode == "exact_b" else 5000
+        kw = dict(pattern_name="3", ag_wildcard=ag,
+                  search_bits=dt.max_bucket_bits, exact_b=mode == "exact_b",
+                  emit_wl=ag)
+        want = jpipe.map_strand_core(
+            jnp.asarray(preads), jnp.asarray(lens), jnp.int32(b),
+            jnp.int32(6), *jtab, **kw, **jx)
+        calls = []
+        real = verify.verify_worklist
+
+        def spy(*a, **k):
+            out = real(*a, **k)
+            calls.append((a, k, out))
+            return out
+
+        verify.verify_worklist = spy
+        try:
+            got = tpipe.map_strand_core(
+                packing.from_np(preads), torch.from_numpy(lens), b, 6,
+                *ttab, **kw, **tx)
+        finally:
+            verify.verify_worklist = real
+        cache[mode] = (want, got, calls)
+        return cache[mode]
+
+    return run
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stage_in_map_strand_core_matches_jax(mode_runs, monkeypatch, mode):
+    """map_strand_core reaches the verify stage through verify_worklist
+    once per call (whose plain version runs on the CPU), and its outputs
+    equal walt_tpu's, with the JAX verify kernel in interpret mode."""
+    monkeypatch.setenv("WALTX_PALLAS", "1")
+    want, got, calls = mode_runs(mode)
+    assert len(calls) == 1
+    if mode == "emit_wl":
+        keep = _np(want[0][5])
+        np.testing.assert_array_equal(_np(got[0][5]), keep)
+        assert keep.sum() > 0
+        for name, j, t in zip(("wl_read", "col", "pos", "mm", "shift"),
+                              want[0], got[0]):
+            np.testing.assert_array_equal(
+                _np(t)[keep].astype(np.int64), _np(j)[keep].astype(np.int64),
+                err_msg=name)
+        want, got = want[1:], got[1:]
+    for j, t in zip(want, got):
+        np.testing.assert_array_equal(_np(t).astype(np.int64),
+                                      _np(j).astype(np.int64))
+    assert int(_np(calls[0][2][2]).sum()) > 0  # rows were kept
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stage_row_body_on_pipeline_rows(mode_runs, stage_lib, mode):
+    """The g++-built row body on the verify stage's real inputs of every
+    mode equals what the plain version returned there."""
+    _, _, calls = mode_runs(mode)
+    args, kw, out = calls[0]
+    _assert_stage_equal(_stage_gxx(stage_lib, args, kw), out, mode)

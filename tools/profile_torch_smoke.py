@@ -12,6 +12,10 @@ read pairs, made once under ``build/smoke_data/``), and prints:
 - one steady call under ``torch.profiler``: wall, device busy time (the
   union of the device events' intervals), the idle share of the wall, and
   device time by kernel name (the full table goes to ``OUT/``);
+- the verify stage of one real strand pass (the inputs of the first
+  ``verify_worklist`` call of a steady ``map_single_end``): device events
+  and device time per pass of the fused kernel against the chain of torch
+  ops around K1 that it replaced;
 - the CLI end to end with one batch (the default ``-N``) and with 250,000-read
   batches, twice each in turns;
 - for the pairs: ``TorchBackend.map_mate_slabs`` on both mates (first call
@@ -119,6 +123,9 @@ def main(out_dir: str) -> int:
     profiled("map_single_end", lambda: be.map_single_end(
         codes, lens, tables, 5000, 6, pattern), dev,
         os.path.join(out_dir, "profile_kernels.txt"))
+    be.reset_adaptive()
+    stage_events(lambda: be.map_single_end(codes, lens, tables, 5000, 6,
+                                           pattern))
     be.free_tables()
     # end to end through the CLI: one batch (the default -N) against
     # pipelined 250k-read batches, in turns
@@ -155,6 +162,39 @@ def main(out_dir: str) -> int:
               (500_000, 125_000))
     print("card:", cs.card_line(), flush=True)
     return 0
+
+
+def stage_events(call) -> None:
+    """Device events and device time of the verify stage of one strand
+    pass: the fused kernel against the chain it replaced, on the inputs of
+    the first ``verify_worklist`` call that ``call()`` makes."""
+    import chip_smoke as cs
+    from walt_tpu_torch.ops import verify
+
+    seen = []
+    real = verify.verify_worklist
+
+    def spy(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+
+    verify.verify_worklist = spy
+    try:
+        call()
+    finally:
+        verify.verify_worklist = real
+    a, kw = seen[0]
+    fused = cs.device_profile(lambda: verify.verify_worklist(*a, **kw))
+    chain = cs.device_profile(
+        lambda: verify.verify_worklist_reference(*a, **kw))
+    b_ms, b_by = cs.stage_bound(a, kw)
+    print(f"verify stage of one strand pass (M={a[0].shape[0]} rows, "
+          f"{float(a[3].float().mean()):.2f} valid, B={a[4].shape[0]} reads, "
+          f"W={a[4].shape[1]}): fused kernel {fused[1]:.0f} device events, "
+          f"{fused[0] * 1e3:.1f} us; the replaced chain {chain[1]:.0f} device "
+          f"events, {chain[0] * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us "
+          f"({b_by})", flush=True)
 
 
 def profiled(label: str, fn, dev, table_path: str) -> None:

@@ -380,6 +380,7 @@ def check_verify_kernel(device, Wg: int):
                   for f in (verify.verify_windows,
                             verify.verify_windows_reference))
     k_bound = windows_bound(args, MAIN_W)
+    pe_bound = windows_bound(pe_args, MAIN_W)
     say("kernel", f"verify_windows == plain on {len(shapes)} shapes "
                   f"(sh 0..30, end clamp, gpos >= 2^31); at M={MAIN_M} "
                   f"W={MAIN_W}: device time (torch.profiler) kernel "
@@ -390,11 +391,12 @@ def check_verify_kernel(device, Wg: int):
                   f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us; at the PE shape "
                   f"M={PE_M}: device time kernel {pe_k * 1e3:.1f} us, plain "
                   f"{pe_p * 1e3:.1f} us per call; bound at M={MAIN_M} "
-                  f"{k_bound[0] * 1e3:.2f} us ({k_bound[1]})")
+                  f"{k_bound[0] * 1e3:.2f} us ({k_bound[1]}), at M={PE_M} "
+                  f"{pe_bound[0] * 1e3:.2f} us")
     return dict(max_abs_err=err, ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2,
                 wall_ms=(k1 + k2) / 2, plain_wall_ms=(p1 + p2) / 2,
                 bound_ms=k_bound[0], bound_by=k_bound[1], pe_ms=pe_k,
-                pe_plain_ms=pe_p)
+                pe_plain_ms=pe_p, pe_bound_ms=pe_bound[0])
 
 
 #: fused-stage shapes (M, B, W, stage_inputs options): the SE and PE main

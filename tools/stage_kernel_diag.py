@@ -14,7 +14,7 @@ Times each (device time, torch.profiler, in turns: every variant, then
 every variant again) on ``chip_smoke.stage_inputs`` worklists at the SE
 main-path shape (M = 196,608 rows, B = 131,072 reads, W = 7), against a
 16M- and a 128M-entry index, and a plain device copy of the bytes the
-kernel's bound counts (the card's reachable streaming rate).
+kernel's bound counts (at this size the copy fits in the 50 MB L2).
 
 Usage, from the repository root on a machine with a card and nvcc:
 
@@ -61,9 +61,9 @@ def build_variant(name: str, edits, out_dir: str) -> ctypes.CDLL:
         with open(path, "w") as fh:
             fh.write(src.replace(old, new))
     so = os.path.join(d, "libvariant.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
-                           "-I", d, "-o", so, os.path.join(d, "verify_stage.cu")],
-                          capture_output=True, text=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", d, "-o",
+           so, os.path.join(d, "verify_stage.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
     lib = ctypes.CDLL(so)
@@ -117,7 +117,7 @@ def main() -> int:
     y = torch.empty_like(x)
     ms = cs.device_profile(lambda: y.copy_(x))[0]
     print(f"device copy of {16 * n / 1e6:.1f} MB (read + write): "
-          f"{ms * 1e3:.2f} us, {16 * n / ms / 1e9:.0f} GB/s", flush=True)
+          f"{ms * 1e3:.2f} us, {16 * n / ms / 1e6:.0f} GB/s", flush=True)
     return 0
 
 

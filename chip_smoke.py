@@ -25,7 +25,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    pairs (fragments 150-500 bp), built once into build/smoke_data/;
 5. SE backend parity: TorchBackend.map_single_end on all reads == the
    native exact replay on every read the device resolved, with a
-   device-resolved share of at least 75%;
+   device-resolved share of at least 75%; then the uniq build alone on the
+   CT00 table (128M entries): its time, and its peak memory above the
+   placed table and its outputs (at most MAX_UNIQ_BUILD_GIB);
 6. SE end to end: the port's CLI (one warm-up run, one timed run) writes MR
    output and .mapstats byte-identical to the exact host path;
 7. PE backend parity: TorchBackend.map_mate_slabs on both mates, finalized
@@ -57,6 +59,22 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
 12. entry.dryrun_multichip(4): the dry run on four devices (the first card
     four times when there are fewer).
 
+13. positions past 2^31: phase 4's index behind a filler chromosome of
+    FILLER bases (2,243,483,648 positions; written once, no second index
+    build): every table is phase 4's with FILLER added to each entry.  The
+    CLI maps the 1M reads and the 500k pairs in one run (one backend):
+    MR and .mapstats byte-identical to phases 6 and 8's exact host path,
+    with the device-resolved shares of phases 6 and 8 (those of phases 5
+    and 7); then process_single_end on the 250,000 mesh reads, virtual
+    meshes on one card with the tp and accel that hbm_plan.plan_tables
+    picks for this genome on this card, and tp=2 with key16: byte-identical
+    to phase 11's exact host path.  Prints the largest genome position the
+    device emitted (at least 2^31).
+
+Phases 5, 7, 9 and 10 print the working set, the peak reserved device
+memory less the resident tables' bytes; the largest sets
+``TorchBackend.HBM_RESERVE``, and the script fails if one exceeds it.
+
 Each phase that drives the main path sets every kernel's launch count to
 0 just before and reads the counts just after; it fails unless the fused
 stage was launched.  The last two lines are one JSON object describing the
@@ -66,8 +84,9 @@ least time the card could take for the same work from the bytes these
 inputs need at 3.35 TB/s or their integer operations, whichever is larger;
 ``launches`` and ``launches_pe`` count the launches of the timed SE and PE
 CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
-and PE runs; ``chain_ms`` is the replaced chain's device time) and one JSON
-object ``{"ok": true, "device": {...}}``.
+and PE runs, ``launches_shifted`` and ``launches_shifted_mesh`` those of
+phase 13's CLI run and mesh runs; ``chain_ms`` is the replaced chain's
+device time) and one JSON object ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -108,6 +127,12 @@ N_MESH_PAIRS = 125_000
 #: port equals walt_tpu exactly) holds 5/8; the reads past it fall back, and
 #: the PE step has no device tiers to take them (0.6849 measured on an H100)
 MIN_MESH_PE_SHARE = 0.65
+#: the uniq build's peak device memory above its table and outputs
+MAX_UNIQ_BUILD_GIB = 0.5
+#: phase 13's filler chromosome in front of phase 4's genome: a multiple of
+#: 16 (the packed words keep their bits), so phase 4's first chromosome
+#: straddles 2^31 and the genome ends at 2,243,483,648 < 2^32
+FILLER = (1 << 31) - 32_000_000
 
 
 def zero_counts() -> None:
@@ -128,6 +153,107 @@ def counts() -> dict:
 
 def say(phase: str, msg: str) -> None:
     print(f"[chip_smoke] {phase}: {msg}", flush=True)
+
+
+def start_memory(device) -> None:
+    """Release the allocator's cached blocks and reset the peaks, so the
+    next peak is what the following work needs."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def table_bytes(backend, device=None) -> int:
+    """Bytes of a backend's resident tables (on ``device``, when given):
+    every distinct tensor storage of its cached tables (a mesh's shards and
+    their shared genome words once)."""
+    import torch
+
+    seen = {}
+    for entry in backend._tables.values():
+        tabs = entry[1]
+        dicts = ([sh for row in tabs for sh in row]
+                 if backend.mesh is not None else [tabs])
+        for d in dicts:
+            for v in d.values():
+                if torch.is_tensor(v) and device in (None, v.device):
+                    st = v.untyped_storage()
+                    seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def working_set(device, *backends) -> float:
+    """Peak reserved device memory since :func:`start_memory` less the
+    backends' resident tables, in GiB: what mapping needs beside its tables
+    (chunks, worklists, build temporaries, the allocator's caching)."""
+    import torch
+
+    reserved = torch.cuda.max_memory_reserved(device)
+    return (reserved - sum(table_bytes(b, device) for b in backends)) / 2**30
+
+
+class Recorder:
+    """While active, keeps the backend ``backends.get_backend`` makes (the
+    CLI's) and what its ``map_single_end`` and ``map_mate_slabs_finish``
+    calls return: the fallback masks and device positions a CLI run does
+    not print.  :meth:`watch` does the same for a backend made here."""
+
+    def __init__(self):
+        self.backend, self.se, self.pe = None, [], []
+
+    def watch(self, backend):
+        self.backend = backend
+        for name, into in (("map_single_end", self.se),
+                           ("map_mate_slabs_finish", self.pe)):
+            fn = getattr(backend, name)
+
+            def wrapped(*a, _fn=fn, _into=into, **k):
+                out = _fn(*a, **k)
+                _into.append(out)
+                return out
+
+            setattr(backend, name, wrapped)
+        return backend
+
+    def __enter__(self):
+        from walt_tpu_torch.core import backends
+
+        self._real = backends.get_backend
+        backends.get_backend = lambda *a, **k: self.watch(self._real(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        from walt_tpu_torch.core import backends
+
+        backends.get_backend = self._real
+
+    def se_share(self) -> float:
+        import numpy as np
+
+        return float((~np.concatenate([o[4] for o in self.se])).mean())
+
+    def pe_share(self) -> float:
+        """Pairs neither mate sent to fallback (mates finish in order)."""
+        import numpy as np
+
+        fb = [o[1] for o in self.pe]
+        return float((~np.concatenate([a | b for a, b in
+                                       zip(fb[0::2], fb[1::2])])).mean())
+
+    def max_position(self) -> int:
+        """The largest genome position of a device-resolved result."""
+        import numpy as np
+
+        top = [int(p[~fb & (t > 0)].max(initial=0))
+               for p, t, _, _, fb in self.se]
+        for streams, fb in self.pe:
+            for st in streams:
+                used = (np.arange(st["pos"].shape[1])[None, :]
+                        < st["cnt"][:, None]) & ~fb[:, None]
+                top.append(int(st["pos"][used].max(initial=0)))
+        return max(top, default=0)
 
 
 def card_line() -> str:
@@ -252,7 +378,7 @@ def verify_inputs(rng, M: int, W: int, Wg: int, device):
 def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
                  n_chroms: int = 4, n_index: int = 1 << 16,
                  seeds=(0, 1, 2), key16: bool = False, check: bool = True,
-                 valid_share: float = 0.85):
+                 valid_share: float = 0.85, straddle: bool = False):
     """Inputs of ``verify.verify_worklist``: a synthetic worklist of M rows
     over B reads of W words, in read order (valid rows first, then the
     invalid tail on read 0, as the pipeline's compaction leaves them),
@@ -264,7 +390,10 @@ def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
     verify_skip lanes (base 70 on shift 2) and the cared check all decide
     some rows; lengths run from 0 (reads shorter than 38 bp included) to
     16 W.  ``check``: the window cared check runs (``key16``: from cared
-    position kw + 8).  Returns (args, kwargs) of the call."""
+    position kw + 8).  ``straddle``: the random words start at base
+    2^31 - 8 Wg behind zero words, so index values and chromosome starts
+    lie on both sides of 2^31 (the first chromosome spans the zeros).
+    Returns (args, kwargs) of the call."""
     import numpy as np
     import torch
 
@@ -274,16 +403,20 @@ def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
     pattern = get_pattern("3")
     plen, S = pattern.pattern_len, len(seeds)
     G = Wg * 16 - 32  # genome bases; the last words clamp windows
+    base = (1 << 31) - 16 * (Wg // 2) if straddle else 0
     cuts = np.sort(rng.choice(np.arange(1, G), n_chroms - 1, replace=False))
-    si = np.concatenate([[0], cuts, [G]]).astype(np.uint32)
+    si = np.concatenate([[0], base + cuts, [base + G]]).astype(np.uint32)
     pseq = rng.integers(0, 1 << 32, Wg, dtype=np.uint32)
-    index = rng.integers(0, G, n_index).astype(np.uint32)
+    if base:
+        pseq = np.concatenate([np.zeros(base // 16, np.uint32), pseq])
+    index = (base + rng.integers(0, G, n_index)).astype(np.uint32)
     k = max(1, n_index // 16)
     ch = rng.integers(0, n_chroms, 2 * k)
     index[:k] = si[ch[:k]] + rng.integers(0, 3, k)  # chromosome starts
     index[k:2 * k] = np.maximum(si[ch[k:] + 1].astype(np.int64)
                                 - rng.integers(1, 120, k), 0)  # ends
-    index[2 * k:2 * k + 8] = [0, 1, G - 1, G - 5, Wg * 16 - 3,
+    index[2 * k:2 * k + 8] = [0, 1, base + G - 1, base + G - 5,
+                              base + Wg * 16 - 3,
                               0x80000000, 0x9000000F, 0xFFFFFFF1]
     rng.shuffle(index[8:])
 
@@ -403,7 +536,9 @@ def check_verify_kernel(device, Wg: int):
 #: path, then edges: key16's and exact_b's cared checks, phase A's one seed,
 #: W from 1 to 16 (template instances) and 17 and 63 (the runtime-W
 #: instance), more chromosome starts than shared memory holds (2048),
-#: reads too sparse for the staged conv range, a ragged last block
+#: reads too sparse for the staged conv range, a ragged last block; then
+#: genomes whose index values and chromosome starts pass 2^31, with one
+#: chromosome or with hg19's 93 contigs, at the SE shape and at edges
 STAGE_SHAPES = [
     (MAIN_M, MAIN_B, MAIN_W, {}), (PE_M, MAIN_B, MAIN_W, {}),
     (5003, 3000, 7, dict(key16=True)), (5003, 3000, 7, dict(check=False)),
@@ -412,6 +547,10 @@ STAGE_SHAPES = [
     (4097, 2000, 17, {}), (4097, 2000, 63, {}),
     (2000, 1000, 7, dict(n_chroms=3000)), (600, 60_000, 7, {}),
     (255, 100, 7, {}),
+    (MAIN_M, MAIN_B, MAIN_W, dict(straddle=True, n_chroms=93)),
+    (5003, 3000, 7, dict(straddle=True, n_chroms=1)),
+    (5003, 3000, 7, dict(straddle=True, n_chroms=93, key16=True)),
+    (4097, 2000, 17, dict(straddle=True, n_chroms=93)),
 ]
 
 
@@ -429,6 +568,7 @@ def check_stage_kernel(device, Wg: int):
 
     rng = np.random.default_rng(2025)
     main = {}
+    past = 0  # kept windows at or past 2^31
     for M, B, W, opts in STAGE_SHAPES:
         big = M >= MAIN_M
         args, kw = stage_inputs(rng, M, B, W, Wg if big else 1 << 16, device,
@@ -442,8 +582,11 @@ def check_stage_kernel(device, Wg: int):
                 bad = int((g != w).sum())
                 raise AssertionError(f"verify_worklist {name} != plain at "
                                      f"M={M} B={B} W={W} {opts}: {bad} rows")
-        if big:
+        if opts.get("straddle"):
+            past += int((got[0][got[2]] >= 1 << 31).sum())
+        elif big:
             main[M] = (args, kw)
+        del args, got, want
     args, kw = main[MAIN_M]
     kern = lambda: verify.verify_worklist(*args, **kw)  # noqa: E731
     chain = lambda: verify.verify_worklist_reference(*args, **kw)  # noqa: E731
@@ -462,7 +605,9 @@ def check_stage_kernel(device, Wg: int):
     valid = float(args[3].float().mean())
     say("kernel", f"verify_worklist == plain on {len(STAGE_SHAPES)} shapes "
                   f"(SE, PE, key16, exact_b, seed 0, W 1/3/7/13/16/17/63, "
-                  f"3000 chromosomes, sparse reads, ragged block); at "
+                  f"3000 chromosomes, sparse reads, ragged block, and "
+                  f"genomes past 2^31 with 1 or 93 chromosomes: {past} kept "
+                  f"windows at or past 2^31); at "
                   f"M={MAIN_M} B={MAIN_B} W={MAIN_W} ({valid:.2f} valid): "
                   f"device time (torch.profiler) kernel "
                   f"{k1[0] * 1e3:.1f}/{k2[0] * 1e3:.1f} us in "
@@ -476,6 +621,8 @@ def check_stage_kernel(device, Wg: int):
                   f"kernel at {100 * b_ms / ((k1[0] + k2[0]) / 2):.0f}% of "
                   f"it; at the PE shape M={PE_M}: kernel {pe_k * 1e3:.1f} us, "
                   f"chain {pe_c * 1e3:.1f} us, bound {pe_b_ms * 1e3:.2f} us")
+    if not past:
+        raise AssertionError("no fused-stage shape kept a window past 2^31")
     return dict(max_abs_err=0, ms=(k1[0] + k2[0]) / 2, plain_ms=p1[0],
                 chain_ms=(c1[0] + c2[0]) / 2, wall_ms=(wk1 + wk2) / 2,
                 plain_wall_ms=wp1, chain_wall_ms=(wc1 + wc2) / 2,
@@ -559,16 +706,15 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     n = codes.shape[0]
     backend = TorchBackend(device=device)
     backend.table_budget_hint = 2
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    start_memory(device)
     zero_counts()
     t0 = time.perf_counter()
     pos, times, minus, mm, fb = backend.map_single_end(
         codes, lens, tables, 5000, 6, pattern)
     t1 = time.perf_counter()
     launches = counts()
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    peak = torch.cuda.max_memory_allocated(device)
+    ws = working_set(device, backend)
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
     t2 = time.perf_counter()
     if ref is None:
@@ -593,9 +739,51 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
                   f"verify launches {launches}; map_single_end "
                   f"{t1 - t0:.2f} s (tables included), se_exact on all "
                   f"reads {t2 - t1:.2f} s; peak device memory "
-                  f"{peak / 2**30:.2f} GiB")
+                  f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
+                  f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
+                  f"GiB of tables)")
     backend.free_tables()
-    return share, peak
+    return share, ws
+
+
+def uniq_build(index: str, device, reps: int = 3):
+    """Phase 5, the uniq build alone on the CT00 table: wall time per build
+    (synchronized) and the peak allocated memory above the placed table and
+    the build's outputs."""
+    import torch
+
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index import io_walt
+    from walt_tpu_torch.ops import device_index
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(index)
+    g, ht = io_walt.read_table_cached(index + "_CT00", gm)
+    dev = device_index.place_table(
+        device_index.build_device_table(g, ht, pattern), device)
+    secs, over = [], 0
+    for _ in range(reps):
+        start_memory(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        out = device_index.build_uniq_device(dev["pseq"], dev["index"],
+                                             dev["counter"], pattern)
+        torch.cuda.synchronize(device)
+        secs.append(time.perf_counter() - t0)
+        outs = sum(t.numel() * t.element_size() for t in out[:3])
+        over = max(over, torch.cuda.max_memory_allocated(device) - base - outs)
+        del out
+    n = int(ht.index.shape[0])
+    say("uniq build", f"{n} entries (CT00): "
+                      f"{' / '.join(f'{t:.3f}' for t in secs)} s per build; "
+                      f"peak above the placed table and the outputs "
+                      f"{over / 2**30:.3f} GiB ({over / n:.2f} B/entry; "
+                      f"limit {MAX_UNIQ_BUILD_GIB} GiB)")
+    del dev
+    torch.cuda.empty_cache()
+    if over > MAX_UNIQ_BUILD_GIB * 2**30:
+        raise AssertionError(f"the uniq build took {over / 2**30:.3f} GiB "
+                             f"above its table and outputs")
 
 
 class AllFallback:
@@ -628,8 +816,9 @@ def end_to_end(index: str, fastq: str, device, n_reads: int):
     perf.reset()
     zero_counts()
     t0 = time.perf_counter()
-    if cli.main(argv) != 0:
-        raise AssertionError("the timed CLI run failed")
+    with Recorder() as rec:
+        if cli.main(argv) != 0:
+            raise AssertionError("the timed CLI run failed")
     wall = time.perf_counter() - t0
     launches = counts()
     stages = perf.snapshot()
@@ -647,9 +836,10 @@ def end_to_end(index: str, fastq: str, device, n_reads: int):
         raise AssertionError("the CLI run never launched the verify kernel")
     say("e2e", f"CLI {n_reads / wall:.1f} reads/s ({wall:.2f} s wall for "
                f"{n_reads} reads, tables included), verify launches "
-               f"{launches}; MR and .mapstats byte-identical to the exact "
-               f"host path; host stages {stages}")
-    return launches, wall
+               f"{launches}; device-resolved share {rec.se_share():.4f}; MR "
+               f"and .mapstats byte-identical to the exact host path; host "
+               f"stages {stages}")
+    return launches, rec.se_share()
 
 
 #: the per-pair fields of native.pe_finalize compared with the exact path
@@ -734,12 +924,11 @@ def pe_parity(index: str, pe, device, min_share: float):
     n = mates[0][0].shape[0]
     backend = TorchBackend(device=device)
     backend.table_budget_hint = 4
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    start_memory(device)
     share, launches, t_map, t_exact = map_pairs_vs_exact(
         backend, mates, tables, gm.start_index.astype(np.uint32))
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    peak = torch.cuda.max_memory_allocated(device)
+    ws = working_set(device, backend)
     if backend.total_reads != 2 * n:
         raise AssertionError(f"total_reads {backend.total_reads} != {2 * n}")
     if share < min_share:
@@ -751,9 +940,11 @@ def pe_parity(index: str, pe, device, min_share: float):
                      f"{launches}; map_mate_slabs (both mates) {t_map:.2f} s "
                      f"(tables included), exact ranking + join on all pairs "
                      f"{t_exact:.2f} s; peak device memory "
-                     f"{peak / 2**30:.2f} GiB")
+                     f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
+                     f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
+                     f"GiB of tables)")
     backend.free_tables()
-    return share, peak
+    return share, ws
 
 
 class AllFallbackPE:
@@ -797,8 +988,9 @@ def pe_end_to_end(index: str, pe, device, n_pairs: int):
     perf.reset()
     zero_counts()
     t0 = time.perf_counter()
-    if cli.main(argv) != 0:
-        raise AssertionError("the timed PE CLI run failed")
+    with Recorder() as rec:
+        if cli.main(argv) != 0:
+            raise AssertionError("the timed PE CLI run failed")
     wall = time.perf_counter() - t0
     launches = counts()
     stages = perf.snapshot()
@@ -817,9 +1009,10 @@ def pe_end_to_end(index: str, pe, device, n_pairs: int):
                              "kernel")
     say("pe e2e", f"CLI {n_pairs / wall:.1f} pairs/s ({wall:.2f} s wall for "
                   f"{n_pairs} pairs, tables included), verify launches "
-                  f"{launches}; MR and .mapstats byte-identical to the exact "
-                  f"host path; host stages {stages}")
-    return launches, wall
+                  f"{launches}; device-resolved pair share "
+                  f"{rec.pe_share():.4f}; MR and .mapstats byte-identical to "
+                  f"the exact host path; host stages {stages}")
+    return launches, rec.pe_share()
 
 
 def smoke_mesh():
@@ -964,6 +1157,7 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
     mesh_b = TorchBackend(mesh=mesh)
     single = TorchBackend(device=device)
     devices = list(dict.fromkeys(mesh.distinct() + [single.device]))
+    start_memory(device)
     peak_gib(devices, reset=True)
     zero_counts()
     (pos, times, minus, mm, fb), t_mesh = timed(lambda: mesh_b.map_single_end(
@@ -980,6 +1174,7 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
     secs, _ = in_turns({"single": lambda: steady(single),
                         "mesh": lambda: steady(mesh_b)})
     passes = tier_breakdown(mesh_b, lambda: steady(mesh_b))
+    ws = working_set(device, mesh_b, single)
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
     if ref is None:
         raise RuntimeError("the native exact replay library is unavailable")
@@ -1005,9 +1200,11 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
                        f"map_single_end (tables included) mesh "
                        f"{t_mesh:.3f} s, single {t_single:.3f} s; steady: "
                        f"{fmt_secs(secs)}; peak device memory {peak:.2f} GiB "
-                       f"(mesh tables and working set); one more steady mesh "
-                       f"call by pass: {passes}")
-    return mesh_b, single
+                       f"(mesh tables and working set); working set on "
+                       f"{device} {ws:.3f} GiB (both backends' tables "
+                       f"excluded); one more steady mesh call by pass: "
+                       f"{passes}")
+    return mesh_b, single, ws
 
 
 def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
@@ -1024,6 +1221,7 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
               for pair in (("_CT00", "_CT01"), ("_GA10", "_GA11"))]
     mates = [load_reads(fq, n_pairs) for fq in pe]
     devices = list(dict.fromkeys(mesh_b.mesh.distinct() + [single.device]))
+    start_memory(single.device)
     peak_gib(devices, reset=True)
     share, launches, t_map, t_exact = map_pairs_vs_exact(
         mesh_b, mates, tables, gm.start_index.astype(np.uint32))
@@ -1036,6 +1234,7 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
     _, t_single = timed(lambda: both_mates(single))
     secs, last = in_turns({"single": lambda: both_mates(single),
                            "mesh": lambda: both_mates(mesh_b)})
+    ws = working_set(single.device, mesh_b, single)
     s_fb = np.zeros(n_pairs, bool)
     for (ms, mfb), (ss, sfb) in zip(last["mesh"], last["single"]):
         ok = ~(mfb | sfb)
@@ -1060,8 +1259,10 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
                           f"single {t_single:.3f} s; steady: "
                           f"{fmt_secs(secs)}; exact ranking + join "
                           f"{t_exact:.2f} s; peak device memory "
-                          f"{peak:.2f} GiB")
+                          f"{peak:.2f} GiB; working set {ws:.3f} GiB (both "
+                          f"backends' tables excluded)")
     single.free_tables()
+    return ws
 
 
 def same_bytes(out: str, ref: str, what: str) -> None:
@@ -1131,6 +1332,136 @@ def mesh_end_to_end(index, se_sub, pe_sub, mesh_b, virtual: bool,
     return launches, launches_pe
 
 
+def straddling_filler(index: str) -> int:
+    """FILLER, or less when phase 4's first chromosome is too short to
+    straddle 2^31 behind it (a multiple of 16 either way)."""
+    from walt_tpu_torch.index import io_walt
+
+    first = int(io_walt.read_head(index)[0].lengths[0])
+    if FILLER + first > 1 << 31:
+        return FILLER
+    return ((1 << 31) - first // 2) // 16 * 16
+
+
+def shifted_index(index: str, F: int):
+    """Phase 13's index: phase 4's genome behind a filler chromosome of F
+    bases, written once beside phase 4's with ``io_walt``.  The
+    reverse-complement genome keeps the chromosome order, so each of the
+    four tables is phase 4's with F added to every entry and its counter
+    unchanged; the filler is never indexed.  Returns (index path, genome
+    length)."""
+    import dataclasses
+
+    import numpy as np
+
+    from walt_tpu_torch.genome import Genome
+    from walt_tpu_torch.index import io_walt
+    from walt_tpu_torch.index.build import HashTable
+
+    gm, size = io_walt.read_head(index)
+    lengths = np.concatenate([[F], gm.lengths]).astype(np.uint32)
+    start = np.zeros(lengths.shape[0] + 1, np.uint32)
+    np.cumsum(lengths, out=start[1:])
+    genome = Genome(names=["filler"] + list(gm.names), lengths=lengths,
+                    start_index=start, seq=np.zeros(0, np.uint8))
+    path = os.path.join(os.path.dirname(index), "shifted.dbindex")
+    stamp = f"{path}.{F}.ok"
+    if not os.path.exists(stamp):
+        for suffix in io_walt.SUFFIXES:
+            g, ht = io_walt.read_table_cached(index + suffix, gm)
+            seq = np.empty(F + g.seq.shape[0], np.uint8)
+            seq[:F] = 0 if g.strand == "+" else 3  # A; T reverse-complemented
+            seq[F:] = g.seq
+            io_walt.write_table(
+                path + suffix, dataclasses.replace(genome, seq=seq,
+                                                   strand=g.strand),
+                HashTable(counter=ht.counter, index=ht.index + np.uint32(F)))
+            del seq
+        # the header reads only the genome's length off its sequence
+        io_walt.write_head(path, dataclasses.replace(
+            genome, seq=np.broadcast_to(np.uint8(0), (int(start[-1]),))),
+            size)
+        open(stamp, "w").close()
+    return path, int(start[-1])
+
+
+def shifted_phase(index, fastq, pe, se_sub, device, shares, F: int):
+    """Phase 13 on the index of :func:`shifted_index` (``shares``: the SE
+    and PE device-resolved shares of phases 6 and 8).  Returns (launches of
+    the CLI run, launches of the mesh runs)."""
+    import torch
+
+    from walt_tpu_torch import cli, hbm_plan
+    from walt_tpu_torch.core.single_end import process_single_end
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.parallel import make_mesh
+
+    work = os.path.dirname(index)
+    (index_s, n_bp), t_write = timed(lambda: shifted_index(index, F))
+    out, out_pe = (os.path.join(work, f)
+                   for f in ("shifted.mr", "shifted_pe.mr"))
+    zero_counts()
+    with Recorder() as rec:
+        rc, t_cli = timed(lambda: cli.main(
+            ["-i", index_s, "-r", fastq, "-1", pe[0], "-2", pe[1], "-o",
+             f"{out},{out_pe}", "--device", device.type]))
+    launches = counts()
+    if rc != 0:
+        raise AssertionError("the shifted CLI run failed")
+    same_bytes(out, os.path.join(work, "exact.mr"), "shifted SE CLI")
+    same_bytes(out_pe, os.path.join(work, "exact_pe.mr"), "shifted PE CLI")
+    got = (rec.se_share(), rec.pe_share())
+    top, rungs = rec.max_position(), dict(rec.backend.rungs)
+    rec.backend.free_tables()
+    del rec
+    if got != shares:
+        raise AssertionError(f"shifted shares (SE, PE) {got} != {shares}")
+    if launches["verify_worklist"] <= 0:
+        raise AssertionError("the shifted CLI run never launched the verify "
+                             "kernel")
+
+    plan = hbm_plan.plan_tables(n_bp, 2, uniq_ratio=0.93)
+    layouts = dict.fromkeys([(plan.tp, "uniq" if plan.uniq else "key16"),
+                             (2, "key16")])
+    ref = os.path.join(work, "mesh_exact.mr")
+    mesh_launches, notes = {}, []
+    for tp, accel in layouts:
+        rec = Recorder()
+        b = rec.watch(TorchBackend(mesh=make_mesh([device] * tp, tp=tp),
+                                   tp_accel=accel))
+        mo = os.path.join(work, f"shifted_mesh_tp{tp}_{accel}.mr")
+        fresh(mo)
+        zero_counts()
+        _, wall = timed(lambda: process_single_end(index_s, se_sub, mo,
+                                                   backend=b))
+        c = counts()
+        same_bytes(mo, ref, f"shifted mesh tp={tp} {accel}")
+        if c["verify_worklist"] <= 0:
+            raise AssertionError(f"the shifted mesh tp={tp} {accel} run "
+                                 f"never launched the verify kernel")
+        for k, v in c.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        top = max(top, rec.max_position())
+        notes.append(f"tp={tp} {accel}: share {rec.se_share():.4f}, rungs "
+                     f"{b.rungs}, {wall:.2f} s (tables included), launches "
+                     f"{c}")
+        b.free_tables()
+    torch.cuda.empty_cache()
+    if top < (1 << 31 if n_bp > 1 << 31 else F):
+        raise AssertionError(f"no device result past 2^31 (largest {top})")
+    say("shifted", f"{n_bp} positions (filler {F}): index written in "
+                   f"{t_write:.1f} s; CLI SE + PE in one run "
+                   f"{t_cli:.1f} s (tables included): MR and .mapstats "
+                   f"byte-identical to phases 6 and 8, shares SE "
+                   f"{got[0]:.4f} PE {got[1]:.4f} (phases 6 and 8: "
+                   f"{shares[0]:.4f}, {shares[1]:.4f}), rungs {rungs}, "
+                   f"verify launches {launches}; plan {hbm_plan.describe(plan)}; "
+                   f"mesh SE on one card, byte-identical to phase 11's exact "
+                   f"path: {'; '.join(notes)}; largest position emitted by "
+                   f"the device {top} (2^31 = {1 << 31})")
+    return launches, mesh_launches
+
+
 def mesh_dryrun() -> None:
     """Phase 12."""
     from walt_tpu_torch import entry
@@ -1164,10 +1495,11 @@ def main() -> int:
     stage = check_stage_kernel(device, Wg=GENOME_BASES // 16)
     index, fastq, pe = build_data(DATA, GENOME_BASES, N_READS, N_PAIRS,
                                   READ_LEN)
-    backend_parity(index, fastq, device, MIN_DEVICE_SHARE)
-    launches, _ = end_to_end(index, fastq, device, N_READS)
-    pe_parity(index, pe, device, MIN_DEVICE_SHARE)
-    launches_pe, _ = pe_end_to_end(index, pe, device, N_PAIRS)
+    share, ws_se = backend_parity(index, fastq, device, MIN_DEVICE_SHARE)
+    uniq_build(index, device)
+    launches, cli_share = end_to_end(index, fastq, device, N_READS)
+    pe_share, ws_pe = pe_parity(index, pe, device, MIN_DEVICE_SHARE)
+    launches_pe, cli_pe_share = pe_end_to_end(index, pe, device, N_PAIRS)
 
     mesh, virtual = smoke_mesh()
     say("mesh", f"{mesh} ({'virtual, on one card' if virtual else 'real'}); "
@@ -1176,13 +1508,31 @@ def main() -> int:
                         N_MESH_READS)
     pe_sub = tuple(head_fastq(f, os.path.join(DATA, f"mesh_pairs_{i}.fq"),
                               N_MESH_PAIRS) for i, f in enumerate(pe, 1))
-    mesh_b, single = mesh_se_parity(index, se_sub, mesh, device,
-                                    N_MESH_READS, MIN_DEVICE_SHARE)
-    mesh_pe_parity(index, pe_sub, mesh_b, single, N_MESH_PAIRS,
-                   MIN_MESH_PE_SHARE)
+    mesh_b, single, ws_mesh = mesh_se_parity(index, se_sub, mesh, device,
+                                             N_MESH_READS, MIN_DEVICE_SHARE)
+    ws_mesh_pe = mesh_pe_parity(index, pe_sub, mesh_b, single, N_MESH_PAIRS,
+                                MIN_MESH_PE_SHARE)
     launches_mesh, launches_mesh_pe = mesh_end_to_end(
         index, se_sub, pe_sub, mesh_b, virtual, N_MESH_READS, N_MESH_PAIRS)
+    del mesh_b, single
     mesh_dryrun()
+    launches_shifted, launches_shifted_mesh = shifted_phase(
+        index, fastq, pe, se_sub, device, (cli_share, cli_pe_share),
+        straddling_filler(index))
+    if (cli_share, cli_pe_share) != (share, pe_share):
+        say("shifted", f"note: the CLI shares {cli_share:.4f} / "
+                       f"{cli_pe_share:.4f} differ from phases 5 and 7's "
+                       f"{share:.4f} / {pe_share:.4f}")
+
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    sets = dict(se=ws_se, pe=ws_pe, mesh_se=ws_mesh, mesh_pe=ws_mesh_pe)
+    reserve = TorchBackend.HBM_RESERVE / 2**30
+    say("reserve", f"working sets (peak reserved less resident tables) "
+                   f"{', '.join(f'{k} {v:.3f}' for k, v in sets.items())} "
+                   f"GiB; TorchBackend.HBM_RESERVE {reserve:.3f} GiB")
+    if max(sets.values()) > reserve:
+        raise AssertionError("a working set exceeds TorchBackend.HBM_RESERVE")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "walt_tpu"))
@@ -1190,7 +1540,9 @@ def main() -> int:
         raise AssertionError(f"the port loaded {loaded[:5]}")
     runs = dict(launches=launches, launches_pe=launches_pe,
                 launches_mesh=launches_mesh,
-                launches_mesh_pe=launches_mesh_pe)
+                launches_mesh_pe=launches_mesh_pe,
+                launches_shifted=launches_shifted,
+                launches_shifted_mesh=launches_shifted_mesh)
 
     def entry(name, source, nums, **extra):
         return {"name": name, "route": "cuda", "source": source,

@@ -99,3 +99,92 @@ def test_key_words_builder(prepared, n_key_words):
     # they agree wherever no cared position runs past the genome end
     far = ht.index.astype(np.int64) + int(pattern.cared[-1]) < len(g.seq)
     np.testing.assert_array_equal(got[far], host[far])
+
+
+def _one_pass_uniq(pseq, index, counter, pattern):
+    """The uniq build as one pass over the whole table (whole-table word 0,
+    breaks, int64 starts and searchsorted): the bounded build's reference."""
+    import torch
+
+    n = int(index.shape[0])
+    offs = tdi._cared_offsets(pattern, tdi.POS_PER_WORD)
+    w0 = tdi.packing.to_i32(
+        tdi._cared_keys(pseq, index, offs, tdi.POS_PER_WORD, 0, n))
+    breaks = torch.ones(n, dtype=torch.bool)
+    torch.ne(w0[1:], w0[:-1], out=breaks[1:])
+    cnt = counter.to(torch.int64)
+    breaks[cnt[cnt < n]] = True
+    starts = torch.nonzero(breaks).squeeze(1)
+    uniq_off = torch.cat([starts, torch.full((1,), n)]).to(torch.int32)
+    uniq_counter = torch.searchsorted(starts, cnt)
+    mx = int((uniq_counter[1:] - uniq_counter[:-1]).max())
+    return (w0[starts], uniq_off, uniq_counter.to(torch.int32),
+            max(1, int(np.ceil(np.log2(mx + 1)))))
+
+
+@pytest.fixture(scope="module")
+def repeat_table():
+    """A 100 kbp repeat-structured genome's CT00 table: its buckets hold
+    word-0 runs longer than one entry, which a random genome's rarely do."""
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome_repetitive
+
+    pattern = get_pattern("3")
+    conv, ht = build_table(make_genome_repetitive(100_000, n_chroms=2,
+                                                  seed=5),
+                           "CT00", pattern, verbose=False)
+    dt = tdi.build_device_table(conv, ht, pattern)
+    w0 = tdi.pack_key_words(padded_seq(conv, pattern), ht.index,
+                            pattern)[:, 0]
+    return ht, pattern, dt, tdi.place_table(dt, "cpu"), w0
+
+
+def _chunk_cases(ht, w0):
+    """(entries, chunk) of each case: chunk 1 on a prefix of the table (a
+    CSR cut at n entries) that holds a multi-entry run, one that does not
+    divide n, a bucket start on a chunk edge, a word-0 run that crosses a
+    chunk edge, and one chunk for the whole table."""
+    n = int(ht.index.shape[0])
+    c = ht.counter.astype(np.int64)
+    starts = c[(c > n // 4) & (c < n)]
+    same = np.flatnonzero(w0[1:] == w0[:-1]) + 1
+    same = same[~np.isin(same, c)]
+    far = same[same > n // 4]
+    odd = next(k for k in range(n // 7, n) if n % k)
+    return {"1": (int(same[0]) + 64, 1), "odd": (n, odd),
+            "bucket_edge": (n, int(starts[0])),
+            "run_across": (n, int(far[0])), "whole": (n, n)}
+
+
+@pytest.mark.parametrize("case", ["1", "odd", "bucket_edge", "run_across",
+                                  "whole"])
+def test_uniq_builder_chunked(repeat_table, case):
+    """The bounded (two-pass, chunked) build equals the one-pass build and
+    walt_tpu's runs at every chunk size."""
+    import torch
+
+    ht, pattern, dt, dev, w0 = repeat_table
+    n, chunk = _chunk_cases(ht, w0)[case]
+    index = dev["index"][:n]
+    counter = torch.clamp(dev["counter"], max=n)
+    want = _one_pass_uniq(dev["pseq"], index, counter, pattern)
+    got = tdi.build_uniq_device(dev["pseq"], index, counter, pattern,
+                                chunk=chunk)
+    assert got[3] == want[3]
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(_u32(a), _u32(b))
+    U = got[0].shape[0]
+    assert U < n  # some runs hold several entries
+    j = jdi.build_uniq_device(
+        jnp.asarray(dt.pseq), jnp.asarray(ht.index[:n]),
+        jnp.asarray(np.minimum(ht.counter, n)), pattern)
+    assert j[3] == got[3]
+    np.testing.assert_array_equal(np.asarray(j[0])[:U], _u32(got[0]))
+    np.testing.assert_array_equal(np.asarray(j[1])[:U + 1], _u32(got[1]))
+    np.testing.assert_array_equal(np.asarray(j[2]), _u32(got[2]))
+    args = (dev["pseq"], index, counter, pattern)
+    assert tdi.build_uniq_device(*args, max_bytes=8 * (U + 1),
+                                 chunk=chunk) is not None
+    assert tdi.build_uniq_device(*args, max_bytes=8 * (U + 1) - 1,
+                                 chunk=chunk) is None

@@ -249,7 +249,7 @@ def test_entry_matches_graft_entry():
 
     jfn, jargs = g.entry()
     want = jax.jit(jfn)(*jargs)
-    fn, args = entry.entry()
+    fn, args = entry.entry("cpu")
     got = fn(*args)
     for w, t in zip(want, got):
         np.testing.assert_array_equal(t.numpy().astype(np.int64),
@@ -263,3 +263,16 @@ def test_dryrun_multichip_cpu():
     out = entry.dryrun_multichip(8, ["cpu"] * 8)
     assert (out["dp"], out["tp"]) == (4, 2)
     assert out["unique"] > 0.9 * out["reads"] and out["unique_pairs"] > 0
+
+
+def test_entry_points_refuse_the_cpu_unasked(monkeypatch):
+    """With no card, neither entry point falls back to the CPU unless the
+    caller names it."""
+    from walt_tpu_torch import entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.dryrun_multichip(4)

@@ -259,6 +259,11 @@ STAGE_CASES = {
     "w63_runtime": (700, 400, 63, {}),
     "chroms3000": (2000, 1000, 7, dict(n_chroms=3000)),
     "sparse_reads": (600, 60_000, 7, {}),
+    # genome positions past 2^31: one chromosome, and hg19's 93 contigs
+    "past_2_31_one_chrom": (3000, 2000, 7, dict(straddle=True, n_chroms=1)),
+    "past_2_31_93_chroms": (3000, 2000, 7, dict(straddle=True, n_chroms=93)),
+    "past_2_31_key16": (2000, 1000, 13, dict(straddle=True, n_chroms=93,
+                                             key16=True)),
 }
 
 
@@ -280,6 +285,9 @@ def test_stage_row_body_gxx_matches_reference(stage_lib, case):
                             want, case + " runtime")
     keep, mm = want[2], want[1]
     assert 0 < int(keep.sum()) < M  # both outcomes occur
+    if opts.get("straddle"):  # kept windows on both sides of 2^31
+        kept = want[0][keep]
+        assert (kept >= 1 << 31).any() and (kept < 1 << 31).any()
     assert int((mm <= kw["max_mm"]).sum()) > int(keep.sum()) or case in (
         "exact_b", "seed0")
 

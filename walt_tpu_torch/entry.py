@@ -2,8 +2,9 @@
 dry run.
 
 Port of ``__graft_entry__.py`` (``entry`` and ``dryrun_multichip``).  Both
-take explicit torch devices, so the dry run runs on ``["cpu"] * n``, on a
-virtual mesh over one card (``["cuda:0"] * n``) and on real cards alike.
+run on the card unless the caller names other devices: the dry run takes
+``["cpu"] * n``, a virtual mesh over one card (``["cuda:0"] * n``) and real
+cards alike, and with no devices given it refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -24,11 +25,16 @@ def _check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """(fn, example_args): one mapping step of a packed bisulfite read
     batch against one converted-genome table (seed hash -> bucket refine ->
-    verify -> compact), on ``device``; ``fn(*example_args)`` returns the
-    candidate slabs of ``pipeline.map_strand_core``."""
+    verify -> compact), on ``device`` (``"cpu"`` must be asked for);
+    ``fn(*example_args)`` returns the candidate slabs of
+    ``pipeline.map_strand_core``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
     pattern = get_pattern("3")
     genome = make_genome(200_000, seed=0)
     conv, table = build_table(genome, "CT00", pattern, verbose=False)
@@ -59,11 +65,14 @@ def entry(device="cpu"):
 
 def _default_devices(n: int) -> list:
     """n CUDA cards when there are that many, else a virtual mesh over the
-    first card, else the CPU n times."""
+    first card; raises when there is no card (the CPU must be asked for)."""
     n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not n_cuda:
+        raise RuntimeError("dryrun_multichip: no CUDA device is available; "
+                           "pass devices=['cpu'] * n to run on the CPU")
     if n_cuda >= n:
         return [torch.device("cuda", i) for i in range(n)]
-    return [torch.device("cuda", 0) if n_cuda else torch.device("cpu")] * n
+    return [torch.device("cuda", 0)] * n
 
 
 def _mapstats(mesh, times, fb, lens, pattern) -> np.ndarray:

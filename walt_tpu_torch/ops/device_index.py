@@ -36,6 +36,10 @@ POS_PER_WORD = 16
 N_KEY_WORDS = 3  # cared positions 12..59
 #: entries per pass of the device key builders (bounds their temporaries)
 BUILD_CHUNK = 1 << 22
+#: entries per pass of the uniq build: its temporaries (the int64 gather
+#: windows and key values of one chunk, ~190 bytes per entry at the peak)
+#: grow with this, not with the table
+UNIQ_CHUNK = 1 << 20
 
 
 @dataclasses.dataclass
@@ -248,17 +252,24 @@ def build_uniq_host(word0: np.ndarray, counter: np.ndarray):
 def _cared_keys(pseq, index, offs, n_vals: int, a: int, z: int):
     """Packed 2-bit codes of the genome at ``entry + offs[i]``, i < n_vals,
     first value most significant, for entries [a, z) of ``index``; values
-    past ``len(offs)`` pack as 0.  Returns (z - a,) int64."""
+    past ``len(offs)`` pack as 0.  Returns (z - a,) int64.
+
+    The window starts at the first cared offset, and all values come out of
+    it in one gather (a handful of launches per chunk, not four per value):
+    each base's bits come from the genome word holding it either way, end
+    clamp included."""
     ent = packing.u32(index[a:z])
-    n_win = (max(offs) >> 4) + 1 if offs else 1
-    win = packing.window_words(pseq, ent, n_win)
-    acc = torch.zeros_like(ent)
-    for i in range(n_vals):
-        acc = acc << 2
-        if i < len(offs):
-            off = offs[i]
-            acc = acc | ((win[:, off >> 4] >> (30 - 2 * (off & 15))) & 3)
-    return acc
+    offs = offs[:n_vals]
+    if not offs:
+        return torch.zeros_like(ent)
+    dev, lo = ent.device, min(offs)
+    rel = torch.tensor(offs, dtype=torch.int64, device=dev) - lo
+    win = packing.window_words(pseq, ent + lo, ((max(offs) - lo) >> 4) + 1)
+    vals = win[:, rel >> 4]
+    vals >>= 30 - 2 * (rel & 15)
+    vals &= 3
+    vals <<= 2 * (n_vals - 1 - torch.arange(len(offs), device=dev))
+    return vals.sum(1)  # the values' bits are disjoint: the sum is their OR
 
 
 def _cared_offsets(pattern: SeedPattern, n_pos: int):
@@ -269,15 +280,19 @@ def _cared_offsets(pattern: SeedPattern, n_pos: int):
 
 def build_uniq_device(pseq, index, counter, pattern: SeedPattern,
                       max_bytes: int | None = None,
-                      chunk: int = BUILD_CHUNK):
+                      chunk: int = UNIQ_CHUNK):
     """Dedup word-0 runs within buckets, computed from resident tensors.
 
     Entries within a bucket are stored sorted by their cared positions, so
     equal word-0 lookup keys form contiguous runs; the pipeline's uniq path
-    binary-searches RUNS instead of entries.  One pass: word 0 per entry
-    (chunked only to bound temporaries), run breaks (word change or bucket
-    start), cumulative run starts by ``nonzero``, and the per-bucket CSR
-    over runs by ``searchsorted``.
+    binary-searches RUNS instead of entries.  Two passes over chunks of
+    ``chunk`` entries, so the temporaries grow with the chunk and not with
+    the table (the JAX builder's chunked fill, for the same reason): each
+    chunk's word 0 per entry and run breaks (a word change from the entry
+    before it, the previous chunk's last word carried, or a bucket start).
+    The first pass counts the runs; the second fills the exact-size outputs:
+    each run's word and first entry, and per bucket the runs before its
+    first entry (the break count in front of it).
 
     Returns (uniq_words (U,) int32, uniq_off (U + 1,) int32,
     uniq_counter (nb + 1,) int32, uniq_bits int), exact-size, or None when
@@ -292,28 +307,56 @@ def build_uniq_device(pseq, index, counter, pattern: SeedPattern,
                 z(1, dtype=torch.int32, device=dev),
                 z(nb1, dtype=torch.int32, device=dev), 1)
     offs = _cared_offsets(pattern, POS_PER_WORD)
-    w0 = torch.empty(n, dtype=torch.int32, device=dev)
-    for a in range(0, n, chunk):
-        z = min(a + chunk, n)
-        w0[a:z] = packing.to_i32(
-            _cared_keys(pseq, index, offs, POS_PER_WORD, a, z))
-    breaks = torch.ones(n, dtype=torch.bool, device=dev)
-    torch.ne(w0[1:], w0[:-1], out=breaks[1:])
-    cnt = counter.to(torch.int64)
-    breaks[cnt[cnt < n]] = True  # a bucket start always starts a run
-    U = int(breaks.sum())
+    bounds = list(range(0, n, chunk)) + [n]
+    # counter is sorted and its values are <= n < 2^31: chunk c's bucket
+    # starts are counter[edges[c]:edges[c + 1]]
+    edges = torch.searchsorted(counter, torch.tensor(
+        bounds, dtype=counter.dtype, device=dev)).tolist()
+
+    def chunk_runs(c: int, prev):
+        """(word 0, run breaks) of chunk c; ``prev``: the (1,) word 0 of the
+        entry before it, None for the first chunk."""
+        a, z = bounds[c], bounds[c + 1]
+        w0 = packing.to_i32(_cared_keys(pseq, index, offs, POS_PER_WORD, a, z))
+        brk = torch.empty(z - a, dtype=torch.bool, device=dev)
+        if prev is None:
+            brk[0] = True
+        else:
+            torch.ne(w0[:1], prev, out=brk[:1])
+        torch.ne(w0[1:], w0[:-1], out=brk[1:])
+        brk[(counter[edges[c]:edges[c + 1]] - a).long()] = True
+        return w0, brk
+
+    counts, prev = [], None
+    for c in range(len(bounds) - 1):
+        w0, brk = chunk_runs(c, prev)
+        counts.append(brk.sum())
+        prev = w0[-1:]
+    counts = torch.stack(counts).tolist()
+    U = sum(counts)
     if max_bytes is not None and 8 * (U + 1) > max_bytes:
         return None
-    starts = torch.nonzero(breaks).squeeze(1)
-    del breaks
-    uniq_words = w0[starts]
-    del w0
-    uniq_off = torch.cat(
-        [starts, torch.full((1,), n, dtype=torch.int64, device=dev)]
-    ).to(torch.int32)
-    uniq_counter = torch.searchsorted(starts, cnt)
+    uniq_words = torch.empty(U, dtype=torch.int32, device=dev)
+    uniq_off = torch.empty(U + 1, dtype=torch.int32, device=dev)
+    uniq_counter = torch.empty(nb1, dtype=torch.int32, device=dev)
+    uniq_off[U] = n
+    uniq_counter[edges[-1]:] = U  # buckets that start at n: every run before
+    off, prev = 0, None
+    for c, k in enumerate(counts):
+        a = bounds[c]
+        w0, brk = chunk_runs(c, prev)
+        prev = w0[-1:]
+        st = torch.nonzero(brk).squeeze(1)
+        uniq_words[off:off + k] = w0[st]
+        uniq_off[off:off + k] = (st + a).to(torch.int32)
+        cs = counter[edges[c]:edges[c + 1]]
+        if cs.shape[0]:
+            before = torch.cumsum(brk, 0, dtype=torch.int32) - brk.to(
+                torch.int32)  # breaks in [a, a + i)
+            uniq_counter[edges[c]:edges[c + 1]] = before[(cs - a).long()] + off
+        off += k
     mx = int((uniq_counter[1:] - uniq_counter[:-1]).max())
-    return (uniq_words, uniq_off, uniq_counter.to(torch.int32),
+    return (uniq_words, uniq_off, uniq_counter,
             max(1, int(np.ceil(np.log2(mx + 1)))))
 
 

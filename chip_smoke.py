@@ -64,9 +64,9 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     build): every table is phase 4's with FILLER added to each entry.  The
     CLI maps the 1M reads and the 500k pairs in one run (one backend):
     MR and .mapstats byte-identical to phases 6 and 8's exact host path,
-    with the device-resolved shares of phases 6 and 8 (those of phases 5
-    and 7); then process_single_end on the 250,000 mesh reads, virtual
-    meshes on one card with the tp and accel that hbm_plan.plan_tables
+    with the device-resolved shares of phases 5 and 7 (phases 6 and 8's
+    CLI shares must equal them too); then process_single_end on the
+    250,000 mesh reads, virtual meshes on one card with the tp and accel that hbm_plan.plan_tables
     picks for this genome on this card, and tp=2 with key16: byte-identical
     to phase 11's exact host path.  Prints the largest genome position the
     device emitted (at least 2^31).
@@ -1387,8 +1387,9 @@ def shifted_index(index: str, F: int):
 
 def shifted_phase(index, fastq, pe, se_sub, device, shares, F: int):
     """Phase 13 on the index of :func:`shifted_index` (``shares``: the SE
-    and PE device-resolved shares of phases 6 and 8).  Returns (launches of
-    the CLI run, launches of the mesh runs)."""
+    and PE device-resolved shares of phases 5 and 7, which phases 6 and 8
+    also gave).  Returns (launches of the CLI run, launches of the mesh
+    runs)."""
     import torch
 
     from walt_tpu_torch import cli, hbm_plan
@@ -1453,7 +1454,7 @@ def shifted_phase(index, fastq, pe, se_sub, device, shares, F: int):
                    f"{t_write:.1f} s; CLI SE + PE in one run "
                    f"{t_cli:.1f} s (tables included): MR and .mapstats "
                    f"byte-identical to phases 6 and 8, shares SE "
-                   f"{got[0]:.4f} PE {got[1]:.4f} (phases 6 and 8: "
+                   f"{got[0]:.4f} PE {got[1]:.4f} (phases 5 and 7: "
                    f"{shares[0]:.4f}, {shares[1]:.4f}), rungs {rungs}, "
                    f"verify launches {launches}; plan {hbm_plan.describe(plan)}; "
                    f"mesh SE on one card, byte-identical to phase 11's exact "
@@ -1516,13 +1517,13 @@ def main() -> int:
         index, se_sub, pe_sub, mesh_b, virtual, N_MESH_READS, N_MESH_PAIRS)
     del mesh_b, single
     mesh_dryrun()
-    launches_shifted, launches_shifted_mesh = shifted_phase(
-        index, fastq, pe, se_sub, device, (cli_share, cli_pe_share),
-        straddling_filler(index))
     if (cli_share, cli_pe_share) != (share, pe_share):
-        say("shifted", f"note: the CLI shares {cli_share:.4f} / "
-                       f"{cli_pe_share:.4f} differ from phases 5 and 7's "
-                       f"{share:.4f} / {pe_share:.4f}")
+        raise AssertionError(
+            f"the CLI shares {cli_share:.4f} / {cli_pe_share:.4f} differ "
+            f"from phases 5 and 7's {share:.4f} / {pe_share:.4f}")
+    launches_shifted, launches_shifted_mesh = shifted_phase(
+        index, fastq, pe, se_sub, device, (share, pe_share),
+        straddling_filler(index))
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 

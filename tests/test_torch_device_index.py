@@ -188,3 +188,25 @@ def test_uniq_builder_chunked(repeat_table, case):
                                  chunk=chunk) is not None
     assert tdi.build_uniq_device(*args, max_bytes=8 * (U + 1) - 1,
                                  chunk=chunk) is None
+
+
+def test_uniq_build_time_tool_rehearses_on_cpu():
+    """tools/uniq_build_time.py at a toy size on the CPU, with this tree as
+    the other tree: every build's runs equal, one JSON line."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "uniq_build_time.py"),
+         "--device", "cpu", "--bases", "300000", "--chunks", "4096,65536",
+         "--reps", "1", "--other", root],
+        capture_output=True, text=True, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rep = json.loads(out.stdout.splitlines()[-1])
+    assert rep["order"] == ["other", "chunk 4096", "chunk 65536",
+                            "chunk 65536", "chunk 4096", "other"]
+    assert all(len(v) == 2 for v in rep["seconds"].values())
+    assert rep["entries"] > 290_000 and rep["device"] == "cpu"

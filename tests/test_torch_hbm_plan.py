@@ -3,18 +3,25 @@
 At the JAX package's 16 GiB and 4.25 GiB reserve the port's plan equals
 walt_tpu's field by field (the entry limit never binds there); at an H100's
 79.1 GiB the entry limit decides tp, and no plan ever holds a shard of
-2^31 entries or more.
+2^31 entries or more.  Shards are equal bucket-key ranges, so the plan
+bounds the heaviest one: a table of human base composition shows that its
+model bounds the runtime's split, and that the runtime accepts the width
+the plan picks where an even split's count would have picked a narrower
+one that it refuses.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from walt_tpu import hbm_plan as jplan
 from walt_tpu_torch import hbm_plan
 from walt_tpu_torch.core.torch_backend import TorchBackend
+from walt_tpu_torch.ops import pipeline
 from walt_tpu_torch.ops.pipeline import ENTRY_LIMIT
+from walt_tpu_torch.parallel import sharded
 
 G = 1 << 30
 JAX_HBM, JAX_RESERVE = 16 << 30, 4352 << 20
@@ -35,7 +42,7 @@ def _same(bp, nt, **kw):
     got = hbm_plan.plan_tables(bp, nt, hbm_bytes=JAX_HBM,
                                reserve=JAX_RESERVE, **kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert -(-bp // got.tp) < ENTRY_LIMIT
+    assert hbm_plan.heaviest_shard(bp, got.tp) < ENTRY_LIMIT
     return got
 
 
@@ -60,17 +67,20 @@ def test_table_bytes_equal_walt_tpu():
     assert hbm_plan.NB1 == jplan.NB1
 
 
-@pytest.mark.parametrize("bp,nt,tp,gib", [(HG19, 2, 2, 34.61),
-                                          (HG19, 4, 2, 69.23),
-                                          (SHIFTED, 2, 2, None)])
+@pytest.mark.parametrize("bp,nt,tp,gib", [(HG19, 2, 4, 18.03),
+                                          (HG19, 4, 4, 36.06),
+                                          (SHIFTED, 2, 2, 25.09)])
 def test_h100_plans(bp, nt, tp, gib):
     """On 79.1 GiB one card would hold the tables in memory, but not their
-    entries in int32 indices: tp=2, uniq."""
+    entries in int32 indices, and hg19's heavier tp=2 shard (~0.71 of 3.1e9
+    entries) is past 2^31 too: hg19 at tp=4, the 2.24 Gbp genome at tp=2,
+    uniq."""
     p = hbm_plan.plan_tables(bp, nt, hbm_bytes=H100_HBM,
                              reserve=JAX_RESERVE, uniq_ratio=0.93)
     assert (p.tp, p.uniq) == (tp, True) and p.fits()
-    if gib is not None:
-        assert abs(p.per_chip_bytes / G - gib) < 0.05
+    assert abs(p.per_chip_bytes / G - gib) < 0.05
+    assert hbm_plan.heaviest_shard(bp, tp) < ENTRY_LIMIT
+    assert hbm_plan.heaviest_shard(bp, tp // 2) >= ENTRY_LIMIT
     # the backend's measured reserve picks the same layout
     q = hbm_plan.plan_tables(bp, nt, hbm_bytes=H100_HBM, uniq_ratio=0.93)
     assert (q.tp, q.uniq, q.reserve) == (tp, True, TorchBackend.HBM_RESERVE)
@@ -91,8 +101,61 @@ def test_no_plan_reaches_the_entry_limit(hbm_gib):
                         reserve=JAX_RESERVE, b_small=b_small)
                 except ValueError:
                     continue  # does not fit 64 shards
+                assert hbm_plan.heaviest_shard(bp, p.tp) < ENTRY_LIMIT
                 assert -(-bp // p.tp) < ENTRY_LIMIT
                 assert p.fits()
+
+
+@pytest.fixture(scope="module")
+def human_like():
+    """(genome bases, the two SE tables' counters) of a 1 Mbp random genome
+    with hg19's base composition (A = T = 0.295, C = G = 0.205)."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome
+
+    g = make_genome(1_000_000, n_chroms=2, seed=3)
+    rng = np.random.default_rng(3)
+    g = dataclasses.replace(g, seq=rng.choice(
+        4, g.seq.shape[0], p=[0.295, 0.205, 0.205, 0.295]).astype(np.uint8))
+    counters = [build_table(g, conv, get_pattern("3"), verbose=False,
+                            sort_threads=1)[1].counter
+                for conv in ("CT00", "CT01")]
+    return int(g.seq.shape[0]), counters
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 8, 16])
+def test_model_bounds_the_runtime_split(human_like, tp):
+    """The size-only share bounds the heaviest of the runtime's tp shards
+    of a human-composition table, and the share measured on the counters
+    is the runtime's own split."""
+    n, counters = human_like
+    measured = hbm_plan.heaviest_shard(n, tp, counters)
+    for c in counters:
+        _, bounds = sharded.bucket_range_bounds(c, tp)
+        assert measured >= int(np.diff(bounds).max())
+    assert measured <= hbm_plan.heaviest_shard(n, tp)
+    if tp == 2:  # the heavier half really is uneven: ~0.705 of the entries
+        assert measured > 0.69 * int(counters[0][-1])
+
+
+@pytest.mark.parametrize("use_counters", [False, True])
+def test_runtime_accepts_the_planned_tp(human_like, monkeypatch,
+                                        use_counters):
+    """With the entry limit at 0.6 of the table, an even split would fit
+    tp=2, but the runtime refuses it (its heavier shard holds ~0.705);
+    the plan picks tp=4, which the runtime accepts."""
+    n, counters = human_like
+    entries = int(counters[0][-1])
+    monkeypatch.setattr(pipeline, "ENTRY_LIMIT", int(0.6 * entries))
+    assert -(-entries // 2) < pipeline.ENTRY_LIMIT  # the even-split count
+    p = hbm_plan.plan_tables(n, 2, hbm_bytes=512 * G, reserve=JAX_RESERVE,
+                             counters=counters if use_counters else None)
+    assert (p.tp, p.uniq) == (4, True)
+    for c in counters:
+        sharded._shard_bounds(c, p.tp, "planned")
+        with pytest.raises(ValueError, match="int32 entry indices"):
+            sharded._shard_bounds(c, p.tp // 2, "narrower")
 
 
 def test_defaults_need_a_card(monkeypatch):
@@ -107,4 +170,6 @@ def test_main_prints_the_deployments(capsys):
     assert hbm_plan.main(["--hbm-gib", "79.1"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 3
-    assert all("tp=2, uniq run index" in line for line in out)
+    assert ["tp=4, uniq run index" in line for line in out] == [True, True,
+                                                                False]
+    assert "tp=2, uniq run index" in out[2]

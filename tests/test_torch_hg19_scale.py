@@ -19,7 +19,8 @@ def test_hg19_tool_rehearses_on_cpu(tmp_path):
                WALTX_HG19_REPORT=str(report))
     # 0.16 GiB above the backend's reserve holds neither rung of the toy
     # tables on one card, and half of them with the uniq index: the plan
-    # splits them tp=2, uniq, as it does hg19 on an H100
+    # splits them tp=2, uniq (memory decides here; the entry limit decides
+    # hg19's tp=4 on an H100)
     hbm_gib = TorchBackend.HBM_RESERVE / 2**30 + 0.16
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "hg19_scale_torch.py"),
@@ -31,6 +32,10 @@ def test_hg19_tool_rehearses_on_cpu(tmp_path):
                              "mapstats_bytes_equal": True}
     assert rep["mesh_map"]["tp"] == 2 and rep["mesh_map"]["virtual"]
     assert rep["mesh_map"]["accel"] == "uniq"
+    assert rep["plan"].startswith("0.00 Gbp x 2 tables: tp=2, uniq")
+    # the heavier of the two bucket-range shards of a uniform genome's
+    # C->T tables holds ~3/4 of their entries (G and T)
+    assert 0.7 < rep["heaviest_shard_entries"] / 1_000_000 < 0.8
     assert all(t["sha_ok"] for t in rep["round_trip"].values())
     assert len(rep["tables"]) == 4 and "card" not in rep
     assert not report.exists()

@@ -17,9 +17,16 @@ copied), and ``start_index`` with the filler in front.  Then:
 - the backend's SE result pack, the PE flat stream's decode and the
   tp-sharded steps (uniq and key16 shards on a CPU mesh) give the unshifted
   results moved by F, with positions on both sides of 2^31.
+
+Memory: the only resident copy of the shifted words is walt_tpu's (its
+comparisons run last), and freed heap goes back to the system after every
+build and test, so a process running this module peaks at ~1.4 GiB.
 """
 
+import ctypes
+import ctypes.util
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +49,23 @@ F = (1 << 31) - 50_000
 RUNGS = ("uniq", "word0", "key16", "3-word")
 _ORDER = ("pseq", "counter", "index", "key_words", "start_index",
           "bucket_flagged")
+_LIBC = ctypes.CDLL(ctypes.util.find_library("c"))
+
+
+def _release():
+    """Hand freed heap pages back to the system.  The table builder's
+    4^12-bucket temporaries (~0.45 GB) and the strand steps' leave the
+    process's heap fragmented, and its resident size would otherwise hold
+    them after they are freed."""
+    gc.collect()
+    if hasattr(_LIBC, "malloc_trim"):  # glibc
+        _LIBC.malloc_trim(0)
+
+
+@pytest.fixture(autouse=True)
+def _released():
+    yield
+    _release()
 
 
 def shifted(dt: tdi.DeviceTable) -> tdi.DeviceTable:
@@ -72,10 +96,15 @@ def small():
         # otherwise take most of this process's memory
         g, ht = build_table(genome, conv, pattern, verbose=False,
                             sort_threads=1)
+        _release()
         dt = tdi.build_device_table(g, ht, pattern)
+        _release()
         tables[conv] = (g, ht, dt, shifted(dt))
+        _release()
     codes, lens, _ = sample_reads(genome, 600, 100, seed=31)
+    _release()
     pairs = sample_pairs(genome, 300, 100, seed=37)
+    _release()
     return genome, tables, (codes, lens), pairs
 
 
@@ -98,10 +127,15 @@ def _torch_tables(dt, pattern, rung):
     return tabs, extra
 
 
-def _jax_tables(dt, pseq, pattern, rung, uniq_from=None):
+def _jax_tables(dt, pseq, pattern, rung, runs=None, keys_from=None):
     """walt_tpu's tables of ``dt`` (``pseq``: its packed words as a JAX
-    array); the uniq rung's runs come from ``uniq_from`` (walt_tpu's uniq
-    build misreads entries >= 2^31, F6)."""
+    array).  Its key words (key16, 3-word) come from ``keys_from``, the
+    unshifted table: keys hold bases, not positions, so they are the
+    shifted table's, and its builders then never copy the ~540 MB of
+    shifted words.  The uniq rung searches ``runs``, the port's run arrays
+    of the same table (key words and entry offsets, no positions; equal to
+    walt_tpu's by :func:`test_uniq_runs_do_not_move`)."""
+    src = dt if keys_from is None else keys_from
     tabs = dict(pseq=pseq, counter=jnp.asarray(dt.counter),
                 index=jnp.asarray(dt.index),
                 start_index=jnp.asarray(dt.start_index),
@@ -109,17 +143,16 @@ def _jax_tables(dt, pseq, pattern, rung, uniq_from=None):
                 key_words=jnp.zeros((1, 1), jnp.uint32))
     extra = {}
     if rung == "uniq":
-        src = dt if uniq_from is None else uniq_from
-        uw, uo, uc, bits = jdi.build_uniq_device(
-            jnp.asarray(src.pseq), jnp.asarray(src.index), tabs["counter"],
-            pattern)
-        extra = dict(uniq_words=uw, uniq_off=uo, uniq_counter=uc,
-                     uniq_bits=bits)
+        extra = {k: jnp.asarray(runs[k].numpy().view(np.uint32))
+                 for k in ("uniq_words", "uniq_off", "uniq_counter")}
+        extra["uniq_bits"] = runs["uniq_bits"]
     elif rung == "key16":
-        tabs["key_words"] = jdi.build_key16_device(pseq, dt.index, pattern)
+        tabs["key_words"] = jdi.build_key16_device(
+            jnp.asarray(src.pseq), src.index, pattern)
     else:
         tabs["key_words"] = jdi.build_key_words_device(
-            pseq, dt.index, pattern, n_key_words=3 if rung == "3-word" else 1)
+            jnp.asarray(src.pseq), src.index, pattern,
+            n_key_words=3 if rung == "3-word" else 1)
     return tabs, extra
 
 
@@ -129,8 +162,8 @@ def _strand_kw(dt, rung):
                 full_mask=True)
 
 
-def _map_strand(dt, pattern, rung, preads, lens):
-    tt, tx = _torch_tables(dt, pattern, rung)
+def _map_strand(dt, pattern, rung, preads, lens, tables=None):
+    tt, tx = tables or _torch_tables(dt, pattern, rung)
     return pipeline.map_strand_core(
         packing.from_np(preads), torch.from_numpy(lens),
         3 if rung == "3-word" else 5000, 6, *(tt[k] for k in _ORDER),
@@ -284,6 +317,30 @@ def test_pe_mate_stream_moves_by_F(small, tp):
     assert n_past > 0
 
 
+def test_uniq_runs_do_not_move(small):
+    """The uniq runs hold words and entry offsets, not positions: the
+    port's bounded build gives the same runs on the shifted table, equal to
+    walt_tpu's on the unshifted one (its host build over its own word-0
+    keys; walt_tpu's device build casts entries to int32, so on the shifted
+    table its word-0 gather of every entry >= 2^31 reads genome word 0:
+    F6)."""
+    genome, tables, _, _ = small
+    pattern = get_pattern("3")
+    _, _, dt, sdt = tables["CT00"]
+    got, want = (tdi.build_uniq_device(d["pseq"], d["index"], d["counter"],
+                                       pattern, chunk=1 << 14)
+                 for d in (tdi.place_table(x, "cpu") for x in (sdt, dt)))
+    assert got[3] == want[3]
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    word0 = np.asarray(jdi.build_key_words_device(
+        jnp.asarray(dt.pseq), dt.index, pattern, n_key_words=1))[:, 0]
+    j = jdi.build_uniq_host(word0, dt.counter)
+    assert j[3] == got[3]
+    for w, t in zip(j[:3], got[:3]):
+        np.testing.assert_array_equal(w, t.numpy().view(np.uint32))
+
+
 # ---- against walt_tpu on the shifted inputs (last: they hold a JAX copy
 # of the shifted CT00 words, ~540 MB, until the module ends) ----
 
@@ -296,16 +353,18 @@ def jax_pseq(small):
 def test_map_strand_core_shifted_matches_jax(small, jax_pseq, monkeypatch,
                                             rung):
     """The port == walt_tpu (its Pallas kernel in interpret mode) on the
-    same shifted inputs; on the uniq rung walt_tpu searches the runs its
-    builder makes from the unshifted entries (the same runs, F6)."""
+    same shifted inputs, the uniq rung's runs included (walt_tpu's own
+    uniq build misreads entries >= 2^31, F6)."""
     monkeypatch.setenv("WALTX_PALLAS", "1")
     genome, tables, (codes, lens), _ = small
     _, _, dt, sdt = tables["CT00"]
     pattern = get_pattern("3")
     codes, lens = codes[:160], lens[:160]
     preads = _packed(codes)
-    got = _map_strand(sdt, pattern, rung, preads, lens)
-    jt, jx = _jax_tables(sdt, jax_pseq, pattern, rung, uniq_from=dt)
+    tt, tx = _torch_tables(sdt, pattern, rung)
+    got = _map_strand(sdt, pattern, rung, preads, lens, (tt, tx))
+    jt, jx = _jax_tables(sdt, jax_pseq, pattern, rung, runs=tx,
+                         keys_from=dt)
     want = jpipe.map_strand_core(
         jnp.asarray(preads), jnp.asarray(lens),
         jnp.int32(3 if rung == "3-word" else 5000), jnp.int32(6),
@@ -317,31 +376,3 @@ def test_map_strand_core_shifted_matches_jax(small, jax_pseq, monkeypatch,
         np.testing.assert_array_equal(t.numpy().astype(w.dtype), w,
                                       err_msg=name)
     assert (got[1].numpy()[got[0].numpy() >= 0] >= 1 << 31).any()
-
-
-def test_uniq_runs_do_not_move(small, jax_pseq):
-    """The uniq runs hold words and entry offsets, not positions: the
-    port's bounded build gives the same runs on the shifted table, equal to
-    walt_tpu's on the unshifted one.  walt_tpu's build on the shifted table
-    differs (F6: it casts entries to int32, so the word-0 gather of every
-    entry >= 2^31 reads genome word 0)."""
-    genome, tables, _, _ = small
-    pattern = get_pattern("3")
-    _, _, dt, sdt = tables["CT00"]
-    got, want = (tdi.build_uniq_device(d["pseq"], d["index"], d["counter"],
-                                       pattern, chunk=1 << 14)
-                 for d in (tdi.place_table(x, "cpu") for x in (sdt, dt)))
-    assert got[3] == want[3]
-    for a, b in zip(got[:3], want[:3]):
-        assert torch.equal(a, b)
-    U = got[0].shape[0]
-    j = jdi.build_uniq_device(jnp.asarray(dt.pseq), jnp.asarray(dt.index),
-                              jnp.asarray(dt.counter), pattern)
-    np.testing.assert_array_equal(np.asarray(j[0])[:U],
-                                  got[0].numpy().view(np.uint32))
-    np.testing.assert_array_equal(np.asarray(j[2]),
-                                  got[2].numpy().view(np.uint32))
-    bad = jdi.build_uniq_device(jax_pseq, jnp.asarray(sdt.index),
-                                jnp.asarray(sdt.counter), pattern)
-    assert not np.array_equal(np.asarray(bad[0])[:U],
-                              got[0].numpy().view(np.uint32))

@@ -12,10 +12,11 @@ Port of ``tools/hg19_scale.py``; imports only ``walt_tpu_torch``.  Stages:
 3. round trip: read every table back and hold its arrays to their sha256;
 4. sample bisulfite reads;
 5. map them on the exact host path (``native.se_exact`` for every read);
-6. map them on the tp mesh that ``walt_tpu_torch.hbm_plan`` plans for this
-   genome on this card (its tp and accel; a virtual mesh on the first card
-   when there are fewer cards than tp) and hold the MR and .mapstats bytes
-   equal to stage 5's.
+6. map them on the tp mesh that ``walt_tpu_torch.hbm_plan`` plans for these
+   tables on this card (its tp and accel, the heaviest shard measured on
+   the SE tables' counters; a virtual mesh on the first card when there are
+   fewer cards than tp) and hold the MR and .mapstats bytes equal to stage
+   5's.
 
 Past 2^31 positions this exercises what int32 carriers of u32 values must
 survive: table entries and chromosome starts >= 2^31 in the fused verify
@@ -137,8 +138,7 @@ def main(argv=None) -> int:
         raise SystemExit("hg19_scale_torch: --device cpu needs --hbm-gib")
     hbm = (int(args.hbm_gib * 2**30) if args.hbm_gib is not None
            else hbm_plan.device_memory())
-    plan = hbm_plan.plan_tables(BP, 2, hbm, uniq_ratio=0.93)
-    rep = {"genome_bp": BP, "n_reads": N_READS, "plan": hbm_plan.describe(plan)}
+    rep = {"genome_bp": BP, "n_reads": N_READS}
     if on_card:
         rep["card"] = {
             "name": torch.cuda.get_device_name(0),
@@ -227,7 +227,7 @@ def main(argv=None) -> int:
         raise AssertionError("round trip: header differs")
     if size_of_index != max(m["entries"] for m in meta.values()):
         raise AssertionError("round trip: size_of_index differs")
-    rt = {}
+    rt, counters = {}, []
     for conv in CONVERSIONS:
         cached = conv in ("CT00", "CT01")  # kept for the mapping stages
         note(f"round trip: {conv} (cached={cached})")
@@ -237,9 +237,19 @@ def main(argv=None) -> int:
         if sha(ht.counter, ht.index) != meta[conv]["sha256"]:
             raise AssertionError(f"round trip: {conv} differs")
         rt[conv] = {"read_s": round(time.time() - t, 1), "sha_ok": True}
+        if cached:
+            counters.append(ht.counter)
         del g, ht
         gc.collect()
     rep["round_trip"] = rt
+    # the plan bounds the runtime's own split of the SE tables (shards are
+    # equal bucket-key ranges, uneven in entries)
+    plan = hbm_plan.plan_tables(BP, 2, hbm, uniq_ratio=0.93,
+                                counters=counters)
+    rep["plan"] = hbm_plan.describe(plan)
+    rep["heaviest_shard_entries"] = hbm_plan.heaviest_shard(BP, plan.tp,
+                                                            counters)
+    del counters
     save()
 
     # ---- stage 4: reads -------------------------------------------------

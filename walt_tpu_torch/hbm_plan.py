@@ -24,23 +24,35 @@ Two limits decide tp.  The memory budget is the card's memory less the
 backend's reserve (``TorchBackend.HBM_RESERVE``, measured on the card).  The
 entry limit: the pipeline's entry indices are int32, so each tp shard must
 hold fewer than ``pipeline.ENTRY_LIMIT`` (2^31) entries, which the runtime
-enforces per table and per shard (``parallel/sharded._shard_bounds``).  On
-a 16 GiB device memory binds first and the limit never does, so the plan
-is the JAX package's.  On an 80 GB card the limit binds first: one card
-would hold hg19's 3.1e9-entry SE tables with the uniq index, but no int32
-index reaches their entries, so hg19 deploys at tp=2.
+enforces per table and per shard (``parallel/sharded._shard_bounds``).
+Shards are equal bucket-key ranges, not equal entry counts, so the plan
+bounds the heaviest shard (:func:`heaviest_shard`): measured on the
+tables' counters when they exist, else from the genome size and a human
+genome's base composition.  On a 16 GiB device memory binds first and the
+limit never does, so the plan is the JAX package's.  On an 80 GB card the
+limit binds first: one card would hold hg19's 3.1e9-entry SE tables with
+the uniq index, but no int32 index reaches their entries, and the heavier
+of two shards holds ~70% of them (2.2e9, past 2^31 too), so hg19 deploys
+at tp=4.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
-from walt_tpu_torch.ops.pipeline import ENTRY_LIMIT
+from walt_tpu_torch.ops import pipeline
 
 NB1 = 4**12 + 1  # CSR counter entries (pattern 3 key weight 12)
+#: GC content of the human genome (hg19: 40.9%), which planning from the
+#: genome size alone assumes
+HUMAN_GC = 0.41
+#: added to each modelled share, so that it bounds a real table's
+_SHARE_MARGIN = 0.01
 
 
 @dataclasses.dataclass
@@ -82,18 +94,54 @@ def device_memory(device=None) -> int:
     return int(torch.cuda.mem_get_info(device)[1])
 
 
+def heaviest_share(tp: int) -> float:
+    """Share of a table's entries on the heaviest of ``tp`` (a power of two)
+    bucket-range shards of a human genome.
+
+    The runtime splits the 4^12 buckets into tp equal key ranges, and a
+    key's top bits are its position's first cared base (A < C < G < T,
+    ``index/build.seed_keys``).  A C->T table has no C, a G->A table no G;
+    a strand holds about as much A as T and C as G.  So at tp=2 the heavier
+    shard holds {G, T} of a C->T table ({A, C} of a G->A one), 1 - A =
+    0.5 + GC/2 (0.705 for hg19); at tp=4 one base, T + C (A + G), 0.5.
+    Each wider split takes the next key bit the same way, the bases taken
+    as independent.  Each factor carries a margin of ``_SHARE_MARGIN``.
+    """
+    k = tp.bit_length() - 1
+    half = 0.5 + HUMAN_GC / 2 + _SHARE_MARGIN
+    base = 0.5 + _SHARE_MARGIN
+    return min(1.0, base ** (k // 2) * half ** (k % 2))
+
+
+def heaviest_shard(genome_bp: int, tp: int, counters=None) -> int:
+    """Entries on the heaviest of ``tp`` shards of the largest table.
+
+    ``counters``: the resident tables' CSR counters; the shards are then
+    the runtime's own split of them (``parallel/sharded``), for a genome
+    of any composition.  Without them, ``genome_bp`` entries per table
+    shared as :func:`heaviest_share` says for a human genome.
+    """
+    if counters is not None:
+        from walt_tpu_torch.parallel.sharded import bucket_range_bounds
+
+        return max(int(np.diff(bucket_range_bounds(c, tp)[1]).max())
+                   for c in counters)
+    return math.ceil(genome_bp * heaviest_share(tp))
+
+
 def plan_tables(genome_bp: int, n_tables: int = 2,
                 hbm_bytes: int | None = None, reserve: int | None = None,
                 uniq_ratio: float = 1.0, b_small: bool = False,
-                max_tp: int = 64) -> TablePlan:
+                max_tp: int = 64, counters=None) -> TablePlan:
     """Smallest tp width (power of two) that fits, preferring uniq.
 
     ``hbm_bytes``: each card's memory (default :func:`device_memory` of the
     current card); ``reserve``: the mapping working set kept free on top of
     the tables (default ``TorchBackend.HBM_RESERVE``).  ``b_small``: the run
     uses -b below the verify slabs, so the exact_b path needs all 3 packed
-    key words (12n/table) regardless of uniq.  A width whose shards would
-    hold ``ENTRY_LIMIT`` entries or more is skipped.
+    key words (12n/table) regardless of uniq.  A width whose heaviest shard
+    (:func:`heaviest_shard` of ``counters``, else of ``genome_bp``) would
+    hold ``pipeline.ENTRY_LIMIT`` entries or more is skipped.
     """
     if hbm_bytes is None:
         hbm_bytes = device_memory()
@@ -109,7 +157,7 @@ def plan_tables(genome_bp: int, n_tables: int = 2,
 
     tp = 1
     while tp <= max_tp:
-        if -(-genome_bp // tp) >= ENTRY_LIMIT:
+        if heaviest_shard(genome_bp, tp, counters) >= pipeline.ENTRY_LIMIT:
             tp *= 2
             continue
         shardable_uniq = n_tables * (base - pseq + uniq + extra_kw)

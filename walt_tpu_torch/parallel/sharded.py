@@ -108,15 +108,21 @@ class ShardedTables:
     uniq_bits: int
 
 
-def _shard_bounds(counter: np.ndarray, n_shards: int, where: str):
-    """(buckets per shard, entry bounds (T + 1,) int64) of a bucket-range
-    split; raises when the buckets do not divide or a shard would overflow
-    the pipeline's int32 entry indices."""
+def bucket_range_bounds(counter: np.ndarray, n_shards: int):
+    """(buckets per shard, entry bounds (T + 1,) int64) of the split of a
+    CSR ``counter`` into ``n_shards`` equal bucket-key ranges; raises when
+    the buckets do not divide."""
     nb = counter.shape[0] - 1
     if nb % n_shards:
         raise ValueError(f"{nb} buckets not divisible by {n_shards} shards")
     nbl = nb // n_shards
-    bounds = counter[::nbl][: n_shards + 1].astype(np.int64)
+    return nbl, counter[::nbl][: n_shards + 1].astype(np.int64)
+
+
+def _shard_bounds(counter: np.ndarray, n_shards: int, where: str):
+    """:func:`bucket_range_bounds`, raising when a shard would overflow the
+    pipeline's int32 entry indices."""
+    nbl, bounds = bucket_range_bounds(counter, n_shards)
     pipeline.check_entry_limit(int(np.diff(bounds).max()), where)
     return nbl, bounds
 

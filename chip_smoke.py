@@ -72,8 +72,9 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     device emitted (at least 2^31).
 
 Phases 5, 7, 9 and 10 print the working set, the peak reserved device
-memory less the resident tables' bytes; the largest sets
-``TorchBackend.HBM_RESERVE``, and the script fails if one exceeds it.
+memory less the resident tables' bytes and less what earlier phases still
+hold; the largest sets ``TorchBackend.HBM_RESERVE``, and the script fails
+if one exceeds it.
 
 Each phase that drives the main path sets every kernel's launch count to
 0 just before and reads the counts just after; it fails unless the fused
@@ -155,14 +156,23 @@ def say(phase: str, msg: str) -> None:
     print(f"[chip_smoke] {phase}: {msg}", flush=True)
 
 
-def start_memory(device) -> None:
-    """Release the allocator's cached blocks and reset the peaks, so the
-    next peak is what the following work needs."""
+def start_memory(device, *backends) -> int:
+    """Free what earlier phases left unreachable (a reference cycle keeps a
+    backend and its tables until the collector runs), release the
+    allocator's cached blocks and reset the peaks, so the next peak is what
+    the following work needs.  Returns the bytes still allocated outside
+    the ``backends``' tables: what earlier work holds, which
+    :func:`working_set` leaves out."""
+    import gc
+
     import torch
 
+    gc.collect()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
+    return (torch.cuda.memory_allocated(device)
+            - sum(table_bytes(b, device) for b in backends))
 
 
 def table_bytes(backend, device=None) -> int:
@@ -184,13 +194,14 @@ def table_bytes(backend, device=None) -> int:
     return sum(seen.values())
 
 
-def working_set(device, *backends) -> float:
-    """Peak reserved device memory since :func:`start_memory` less the
-    backends' resident tables, in GiB: what mapping needs beside its tables
-    (chunks, worklists, build temporaries, the allocator's caching)."""
+def working_set(device, held: int, *backends) -> float:
+    """Peak reserved device memory since :func:`start_memory` less what
+    earlier work ``held`` then (its return value) and the backends'
+    resident tables, in GiB: what mapping needs beside its tables (chunks,
+    worklists, build temporaries, the allocator's caching)."""
     import torch
 
-    reserved = torch.cuda.max_memory_reserved(device)
+    reserved = torch.cuda.max_memory_reserved(device) - held
     return (reserved - sum(table_bytes(b, device) for b in backends)) / 2**30
 
 
@@ -228,6 +239,12 @@ class Recorder:
         from walt_tpu_torch.core import backends
 
         backends.get_backend = self._real
+        if self.backend is not None:
+            # the wrappers hold the backend's bound methods: a cycle that
+            # would keep the backend and its tables on the card until the
+            # collector runs
+            for name in ("map_single_end", "map_mate_slabs_finish"):
+                self.backend.__dict__.pop(name, None)
 
     def se_share(self) -> float:
         import numpy as np
@@ -706,7 +723,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     n = codes.shape[0]
     backend = TorchBackend(device=device)
     backend.table_budget_hint = 2
-    start_memory(device)
+    held = start_memory(device)
     zero_counts()
     t0 = time.perf_counter()
     pos, times, minus, mm, fb = backend.map_single_end(
@@ -714,7 +731,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     t1 = time.perf_counter()
     launches = counts()
     peak = torch.cuda.max_memory_allocated(device)
-    ws = working_set(device, backend)
+    ws = working_set(device, held, backend)
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
     t2 = time.perf_counter()
     if ref is None:
@@ -741,7 +758,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
                   f"reads {t2 - t1:.2f} s; peak device memory "
                   f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
                   f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
-                  f"GiB of tables)")
+                  f"GiB of tables and {held / 2**30:.3f} GiB held before)")
     backend.free_tables()
     return share, ws
 
@@ -763,8 +780,7 @@ def uniq_build(index: str, device, reps: int = 3):
         device_index.build_device_table(g, ht, pattern), device)
     secs, over = [], 0
     for _ in range(reps):
-        start_memory(device)
-        base = torch.cuda.memory_allocated(device)
+        base = start_memory(device)
         t0 = time.perf_counter()
         out = device_index.build_uniq_device(dev["pseq"], dev["index"],
                                              dev["counter"], pattern)
@@ -924,11 +940,11 @@ def pe_parity(index: str, pe, device, min_share: float):
     n = mates[0][0].shape[0]
     backend = TorchBackend(device=device)
     backend.table_budget_hint = 4
-    start_memory(device)
+    held = start_memory(device)
     share, launches, t_map, t_exact = map_pairs_vs_exact(
         backend, mates, tables, gm.start_index.astype(np.uint32))
     peak = torch.cuda.max_memory_allocated(device)
-    ws = working_set(device, backend)
+    ws = working_set(device, held, backend)
     if backend.total_reads != 2 * n:
         raise AssertionError(f"total_reads {backend.total_reads} != {2 * n}")
     if share < min_share:
@@ -942,7 +958,7 @@ def pe_parity(index: str, pe, device, min_share: float):
                      f"{t_exact:.2f} s; peak device memory "
                      f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
                      f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
-                     f"GiB of tables)")
+                     f"GiB of tables and {held / 2**30:.3f} GiB held before)")
     backend.free_tables()
     return share, ws
 
@@ -1157,7 +1173,7 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
     mesh_b = TorchBackend(mesh=mesh)
     single = TorchBackend(device=device)
     devices = list(dict.fromkeys(mesh.distinct() + [single.device]))
-    start_memory(device)
+    held = start_memory(device)
     peak_gib(devices, reset=True)
     zero_counts()
     (pos, times, minus, mm, fb), t_mesh = timed(lambda: mesh_b.map_single_end(
@@ -1174,7 +1190,7 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
     secs, _ = in_turns({"single": lambda: steady(single),
                         "mesh": lambda: steady(mesh_b)})
     passes = tier_breakdown(mesh_b, lambda: steady(mesh_b))
-    ws = working_set(device, mesh_b, single)
+    ws = working_set(device, held, mesh_b, single)
     ref = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
     if ref is None:
         raise RuntimeError("the native exact replay library is unavailable")
@@ -1201,8 +1217,9 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
                        f"{t_mesh:.3f} s, single {t_single:.3f} s; steady: "
                        f"{fmt_secs(secs)}; peak device memory {peak:.2f} GiB "
                        f"(mesh tables and working set); working set on "
-                       f"{device} {ws:.3f} GiB (both backends' tables "
-                       f"excluded); one more steady mesh call by pass: "
+                       f"{device} {ws:.3f} GiB (both backends' tables and "
+                       f"{held / 2**30:.3f} GiB held before excluded); one "
+                       f"more steady mesh call by pass: "
                        f"{passes}")
     return mesh_b, single, ws
 
@@ -1221,7 +1238,7 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
               for pair in (("_CT00", "_CT01"), ("_GA10", "_GA11"))]
     mates = [load_reads(fq, n_pairs) for fq in pe]
     devices = list(dict.fromkeys(mesh_b.mesh.distinct() + [single.device]))
-    start_memory(single.device)
+    held = start_memory(single.device, mesh_b, single)
     peak_gib(devices, reset=True)
     share, launches, t_map, t_exact = map_pairs_vs_exact(
         mesh_b, mates, tables, gm.start_index.astype(np.uint32))
@@ -1234,7 +1251,7 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
     _, t_single = timed(lambda: both_mates(single))
     secs, last = in_turns({"single": lambda: both_mates(single),
                            "mesh": lambda: both_mates(mesh_b)})
-    ws = working_set(single.device, mesh_b, single)
+    ws = working_set(single.device, held, mesh_b, single)
     s_fb = np.zeros(n_pairs, bool)
     for (ms, mfb), (ss, sfb) in zip(last["mesh"], last["single"]):
         ok = ~(mfb | sfb)
@@ -1260,7 +1277,8 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
                           f"{fmt_secs(secs)}; exact ranking + join "
                           f"{t_exact:.2f} s; peak device memory "
                           f"{peak:.2f} GiB; working set {ws:.3f} GiB (both "
-                          f"backends' tables excluded)")
+                          f"backends' tables and {held / 2**30:.3f} GiB held "
+                          f"before excluded)")
     single.free_tables()
     return ws
 

@@ -78,14 +78,15 @@ class TorchBackend:
     #: gather windows, table-build temporaries, the caching allocator's
     #: blocks) on top of the resident tables.  ``chip_smoke.py`` measures
     #: the working set as the peak reserved device memory less the resident
-    #: tables, on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit, in
-    #: two runs: 1.173 / 1.155 GiB for SE (1M reads), 0.750 / 0.875 GiB for
-    #: PE (500k pairs), 3.796 / 3.828 GiB for SE and 0.950 / 0.751 GiB for
-    #: PE on a dp=2 x tp=2 mesh virtual on one card (250k reads, 125k
-    #: pairs; its device tiers' slabs).  The reserve is 4.75 GiB, 24% above
-    #: the largest (3.828 GiB); the script fails when a working set exceeds
-    #: it.
-    HBM_RESERVE = 4864 << 20
+    #: tables and what earlier work still holds, on one NVIDIA H100 80GB
+    #: HBM3 at a 700.00 W power limit: 0.948 GiB for SE (1M reads), 0.857
+    #: GiB for PE (500k pairs), 0.818 GiB for SE and 1.022 GiB for PE on a
+    #: dp=2 x tp=2 mesh virtual on one card (250k reads, 125k pairs).  The
+    #: reserve is 2.5 GiB, about 2.4x the largest: longer reads and more
+    #: repeats widen the worklists.  A reserve too small shows as a device
+    #: out-of-memory error, which maps the batch on the host.  The script
+    #: fails when a working set exceeds the reserve.
+    HBM_RESERVE = 2560 << 20
 
     def __init__(self, device="cuda", chunk: int = 131072,
                  small_chunk: int = 2048,

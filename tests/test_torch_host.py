@@ -8,6 +8,8 @@ On seeded inputs, exact equality throughout:
 - ``index.convert``: a walt_tpu ``Genome``/``HashTable`` handed over as
   arrays becomes the port's types with the same fields;
 - ``host.fastq.load_batch``: codes, lengths, names, sequences, qualities;
+- ``host.replay_vec.replay_single_batch`` (the NumPy spec of the device
+  fold) on seeded candidate slabs, and the port's device fold against it;
 - the emitted MR and SAM lines and ``.mapstats`` of the SE and PE drivers
   on the exact host backend;
 - the native library: ``se_exact``, ``pe_exact_ranked`` +
@@ -27,12 +29,14 @@ import pytest
 from walt_tpu import native as jnative
 from walt_tpu.constants import get_pattern as jget_pattern
 from walt_tpu.host import fastq as jfastq
+from walt_tpu.host import replay_vec as jreplay_vec
 from walt_tpu.index import build as jbuild
 from walt_tpu.index import io_walt as jio
 from walt_tpu.synth import make_genome as jmake_genome
 from walt_tpu_torch import native as tnative
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.host import fastq as tfastq
+from walt_tpu_torch.host import replay_vec
 from walt_tpu_torch.index import build as tbuild
 from walt_tpu_torch.index import convert
 from walt_tpu_torch.index import io_walt as tio
@@ -56,6 +60,36 @@ def _same_table(a, b):
         x, y = getattr(a, f), getattr(b, f)
         assert x.dtype == y.dtype, f
         np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("seed,max_mm,C", [(0, 6, 16), (1, 6, 32), (2, 2, 8),
+                                          (3, 0, 16), (4, 6, 1)])
+def test_replay_vec_matches_walt_tpu(seed, max_mm, C):
+    """Random slabs over a tiny position alphabet (adjacent-duplicate and
+    anchor cases) with empty slots (seed -1) and positions past 2^31."""
+    import torch
+
+    from walt_tpu_torch.ops import se_fold
+
+    rng = np.random.default_rng(300 + seed)
+    B = 80
+    slabs = []
+    for _ in range(2):
+        cs = rng.integers(-1, PATTERN.pattern_len, (B, C)).astype(np.int8)
+        cp = rng.integers(0, 5, (B, C)).astype(np.uint32)
+        cp[rng.random((B, C)) < 0.05] = 0xFFFFFFF0
+        cm = rng.integers(0, 7, (B, C)).astype(np.int32)
+        slabs.append((cs, cp, cm))
+    got = replay_vec.replay_single_batch(slabs, max_mm, PATTERN)
+    want = jreplay_vec.replay_single_batch(slabs, max_mm,
+                                           jget_pattern("3"))
+    fold = se_fold.se_fold(
+        [(torch.from_numpy(a), torch.from_numpy(b.astype(np.int64)),
+          torch.from_numpy(c)) for a, b, c in slabs], max_mm, PATTERN)
+    for g, w, f in zip(got, want, fold):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(f.numpy().astype(g.dtype), g)
 
 
 @pytest.fixture(scope="module")

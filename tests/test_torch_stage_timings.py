@@ -1,0 +1,477 @@
+"""walt_tpu_torch's stage recorder (``ops/stages``) against walt_tpu's stage
+profiler, on the CPU at a toy size.
+
+- Outputs with a recording ``stages`` are bit-identical to ``stages=None``:
+  the SE step on the uniq, key16, u32 word-0 and ``exact_b`` rungs, the PE
+  mate step (``emit_wl``) and a routed tp=2 shard; also with a
+  ``CudaStageTimer`` whose CUDA events are stand-ins.
+- With ``stages=None`` no CUDA event, profiler range or host sync is made.
+- The stage names and their order per mode.
+- At the ``keys``, ``search`` and ``membership`` marks, walt_tpu's
+  ``stage_out`` checksums (``walt_tpu/ops/pipeline.py:299-302``,
+  ``:459-460``, ``:501-502``) computed from the live tensors equal what
+  walt_tpu returns for ``stage_out`` on the same seeded inputs, exactly, on
+  the uniq, entry (u32 word 0) and key16 paths and on both shards of a
+  routed tp=2 split.  ``worklist`` and ``verify`` are not compared: the
+  fused verify stage moved their boundary (walt_tpu's worklist stage ends
+  after the index gather, the chromosome search and
+  ``ok_head``/``ok_tail``, which the port's fused verify kernel does), so
+  no port mark sees walt_tpu's worklist checksum.
+- ``CudaStageTimer.device_split`` on a trace whose device records are made
+  up around a real CPU profile: a kernel counts in the stage whose range
+  holds its launch, not the one its device time overlaps; the stages add
+  up to the pass; work after a pass's last mark counts in no stage, and
+  ``chip_smoke.check_stage_split`` refuses it.
+- ``tools/device_profile_torch.py --device cpu`` prints the report's keys
+  and stage names and writes no file.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from walt_tpu.ops import device_index as jdi
+from walt_tpu.ops import pipeline as jpipe
+from walt_tpu_torch.constants import get_pattern
+from walt_tpu_torch.ops import device_index as tdi
+from walt_tpu_torch.ops import packing, pe_map, se_fold
+from walt_tpu_torch.ops import pipeline as tpipe
+from walt_tpu_torch.ops import stages as st
+from walt_tpu_torch.parallel import sharded as tsh
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PATTERN = get_pattern("3")
+ORDER = ("pseq", "counter", "index", "key_words", "start_index",
+         "bucket_flagged")
+SE_NAMES = ([(t, s) for t in (0, 1) for s in st.STRAND_STAGES]
+            + [(None, "fold")])
+PE_NAMES = SE_NAMES[:-1] + [(None, "flat")]
+
+
+@pytest.fixture(scope="module")
+def host_tables():
+    """The C->T tables of a 200 kbp genome with repeat families: its word-0
+    runs hold several entries, so a run index differs from the entry index
+    it points at (a uniform toy genome's runs are nearly all single
+    entries, and a search mark that passed run indices would go unseen)."""
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.synth import make_genome_repetitive
+
+    genome = make_genome_repetitive(200_000, n_chroms=2, seed=5)
+    return [build_table(genome, c, PATTERN, verbose=False)
+            for c in ("CT00", "CT01")]
+
+
+def _reads(genome, lengths, seed):
+    """Packed bisulfite reads of 100 bp cut to ``lengths``."""
+    from walt_tpu_torch.synth import sample_reads
+
+    codes, _, _ = sample_reads(genome, len(lengths), 100, seed=seed)
+    lens = np.asarray(lengths, dtype=np.int32)
+    codes[np.arange(100)[None, :] >= lens[:, None]] = 0
+    return packing.pack_codes_np(np.pad(codes, ((0, 0), (0, 12)))), lens
+
+
+def _mixed_lengths(n, seed):
+    return list(np.random.default_rng(seed).choice([100, 90, 80, 45, 30], n))
+
+
+def _torch_table(g, ht, rung):
+    """(tensors, search bits, uniq bits) of one table on a rung."""
+    dt = tdi.build_device_table(g, ht, PATTERN)
+    t = tdi.place_table(dt, "cpu")
+    t["key_words"] = torch.zeros((1, 1), dtype=torch.int32)
+    ubits = 0
+    if rung == "uniq":
+        t["uniq_words"], t["uniq_off"], t["uniq_counter"], ubits = \
+            tdi.build_uniq_device(t["pseq"], t["index"], t["counter"],
+                                  PATTERN)
+    elif rung == "key16":
+        t["key_words"] = tdi.build_key16_device(t["pseq"], t["index"],
+                                                PATTERN)
+    else:
+        t["key_words"] = tdi.build_key_words_device(
+            t["pseq"], t["index"], PATTERN,
+            n_key_words=3 if rung == "exact_b" else 1)
+    return t, dt.max_bucket_bits, ubits
+
+
+def _se_step(tabs, preads, lens, exact_b, stages):
+    tables, bits, ubits = zip(*tabs)
+    return se_fold.map_single_end_device(
+        packing.from_np(preads), torch.from_numpy(lens), 3 if exact_b
+        else 5000, 6, tables, pattern_name="3", ag_wildcard=False,
+        search_bits=bits, uniq_bits=ubits, verify_slab=8, wl_factor=1.5,
+        exact_b=exact_b, stages=stages)
+
+
+def _pe_step(tabs, preads, lens, stages):
+    tables, bits, ubits = zip(*tabs)
+    return pe_map.map_mate_device(
+        packing.from_np(preads), torch.from_numpy(lens), 5000, 6, tables,
+        pattern_name="3", ag_wildcard=False, search_bits=bits,
+        verify_slab=pe_map.VERIFY_SLAB, cand_slab=tpipe.CAND_SLAB,
+        wl_factor=pe_map.WL_FACTOR, flat_factor=pe_map.FLAT_FACTOR,
+        uniq_bits=ubits, stages=stages)
+
+
+def _equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):
+            _equal(x, y)
+        else:
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+class _FakeEvent:
+    """Stands in for torch.cuda.Event on the CPU."""
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.recorded = False
+
+    def record(self, stream=None):
+        self.recorded = True
+
+    def elapsed_time(self, other):
+        assert self.recorded and other.recorded
+        return 0.0
+
+
+@pytest.fixture
+def fake_events(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+@pytest.mark.parametrize("rung", ["uniq", "key16", "word0", "exact_b"])
+def test_se_step_with_stages_is_bit_identical(host_tables, fake_events,
+                                              rung):
+    tabs = [_torch_table(g, ht, rung) for g, ht in host_tables]
+    preads, lens = _reads(host_tables[0][0], _mixed_lengths(96, 3), seed=9)
+    exact_b = rung == "exact_b"
+    want = _se_step(tabs, preads, lens, exact_b, None)
+    log = st.StageLog()
+    _equal((_se_step(tabs, preads, lens, exact_b, log),), (want,))
+    assert log.names() == SE_NAMES
+    assert torch.equal(log.marks[-1].live["packed"], want)
+    timer = st.CudaStageTimer()
+    _equal((_se_step(tabs, preads, lens, exact_b, timer),), (want,))
+    assert timer.names() == SE_NAMES
+    # an event at each mark and at each pass's begin and end
+    assert len(timer._bounds) == len(SE_NAMES) + 4
+    assert set(timer.stream_ms()) == set(SE_NAMES) | {(0, "strand"),
+                                                      (1, "strand")}
+    assert int((want[:, 1] > 0).sum()) > 0  # reads mapped
+
+
+def test_pe_step_with_stages_is_bit_identical(host_tables, fake_events):
+    tabs = [_torch_table(g, ht, "uniq") for g, ht in host_tables]
+    preads, lens = _reads(host_tables[0][0], [100] * 64, seed=21)
+    want = _pe_step(tabs, preads, lens, None)
+    log = st.StageLog()
+    _equal(_pe_step(tabs, preads, lens, log), want)
+    assert log.names() == PE_NAMES
+    # under emit_wl the compact mark carries the worklist stream the step
+    # packs into the flat rows
+    assert set(log.marks[5].live) == {"wl", "cand_cnt", "fallback"}
+    timer = st.CudaStageTimer()
+    _equal(_pe_step(tabs, preads, lens, timer), want)
+    assert timer.names() == PE_NAMES
+    assert int((want[0] & 0xFFFF).sum()) > 0  # candidates were found
+
+
+@pytest.fixture(scope="module")
+def shards(host_tables):
+    """tp=2 host shards of CT00 (the layout test_torch_sharded uses)."""
+    g, ht = host_tables[0]
+    dt = tdi.build_device_table(g, ht, PATTERN, with_key_words=True)
+    return tsh.shard_device_table(dt, 2, accel="uniq")
+
+
+def _shard_inputs(stt, s):
+    table = [stt.pseq, stt.counter[s], stt.index[s],
+             np.zeros((1, 1), np.uint32), stt.start_index,
+             stt.bucket_flagged[s]]
+    uniq = [stt.uniq_words[s], stt.uniq_off[s], stt.uniq_counter[s]]
+    return table, uniq
+
+
+def _t(a):
+    return torch.from_numpy(a) if a.dtype == np.uint8 else \
+        packing.from_np(np.ascontiguousarray(a))
+
+
+def _routed(stt, s, preads, lens, stages, emit_wl=False):
+    table, uniq = _shard_inputs(stt, s)
+    with st.strand_pass(stages, 0):
+        return tpipe.map_strand_core(
+            packing.from_np(preads), torch.from_numpy(lens), 5000, 6,
+            *(_t(a) for a in table), pattern_name="3", ag_wildcard=False,
+            search_bits=stt.max_bucket_bits, verify_slab=8, wl_factor=1.5,
+            uniq_words=_t(uniq[0]), uniq_off=_t(uniq[1]),
+            uniq_counter=_t(uniq[2]), uniq_bits=stt.uniq_bits,
+            key_base=int(stt.key_base[s]), tp_route=2, emit_wl=emit_wl,
+            stages=stages)
+
+
+@pytest.mark.parametrize("emit_wl", [False, True])
+def test_routed_shard_with_stages_is_bit_identical(host_tables, shards,
+                                                   emit_wl):
+    preads, lens = _reads(host_tables[0][0], [100] * 96, seed=4)
+    for s in range(2):
+        want = _routed(shards, s, preads, lens, None, emit_wl)
+        log = st.StageLog()
+        _equal(_routed(shards, s, preads, lens, log, emit_wl), want)
+        assert log.names() == [(0, n) for n in st.STRAND_STAGES]
+
+
+def test_no_recording_without_stages(host_tables, shards):
+    """stages=None makes no CUDA event, no profiler range and no host
+    sync on any path: each would raise here."""
+    tabs = [_torch_table(g, ht, "uniq") for g, ht in host_tables]
+    preads, lens = _reads(host_tables[0][0], _mixed_lengths(64, 5), seed=2)
+
+    def boom(*a, **k):
+        raise AssertionError("recorded or synchronized with stages=None")
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.cuda, "Event", boom)
+        m.setattr(torch.cuda, "synchronize", boom)
+        m.setattr(torch.profiler, "record_function", boom)
+        m.setattr(torch.autograd.profiler, "record_function", boom)
+        for name in ("item", "tolist", "numpy", "cpu", "__bool__",
+                     "__int__", "__float__"):
+            m.setattr(torch.Tensor, name, boom)
+        se = _se_step(tabs, preads, lens, False, None)
+        pe = _pe_step(tabs, preads, lens, None)
+        routed = [_routed(shards, s, preads, lens, None, w)
+                  for s in range(2) for w in (False, True)]
+    assert se.shape == (64, 3) and pe[1].shape[1] == 2 and len(routed) == 4
+
+
+def _checksum(stage, live, routed):
+    """walt_tpu's stage_out checksum (walt_tpu/ops/pipeline.py:299-302,
+    :459-460, :501-502) of the live tensors at the port's mark, wrapped to
+    int32 as JAX sums without x64."""
+    def total(t):
+        return int(t.to(torch.int64).sum())
+
+    if stage == "keys":
+        v = (total(live["in_range"]) + total(live["flagged"]) if routed
+             else total(live["lo"]) + total(live["hi"])
+             + total(live["flagged"]))
+    elif stage == "search":
+        v = total(live["lower"]) + (0 if live["run_len"] is None
+                                    else total(live["run_len"]))
+    else:
+        v = total(live["refined_cnt"]) + total(live["overflow"])
+    return int(np.int64(v).astype(np.int32))
+
+
+CHECKED = ("keys", "search", "membership")
+
+
+@pytest.mark.parametrize("rung,full_mask", [
+    ("uniq", True), ("uniq", False), ("word0", False), ("key16", False),
+])
+def test_boundaries_give_walt_tpu_stage_checksums(host_tables, rung,
+                                                  full_mask):
+    g, ht = host_tables[0]
+    lengths = [100] * 64 if full_mask else _mixed_lengths(64, 17)
+    preads, lens = _reads(g, lengths, seed=13)
+    tab, bits, ubits = _torch_table(g, ht, rung)
+    kw = dict(pattern_name="3", ag_wildcard=False, search_bits=bits,
+              verify_slab=8, wl_factor=1.5, full_mask=full_mask)
+    log = st.StageLog()
+    with st.strand_pass(log, 0):
+        tpipe.map_strand_core(
+            packing.from_np(preads), torch.from_numpy(lens), 5000, 6,
+            *(tab[k] for k in ORDER), uniq_words=tab.get("uniq_words"),
+            uniq_off=tab.get("uniq_off"),
+            uniq_counter=tab.get("uniq_counter"), uniq_bits=ubits,
+            stages=log, **kw)
+    live = {m.name: m.live for m in log.marks}
+
+    dt = tdi.build_device_table(g, ht, PATTERN)
+    pseq = jnp.asarray(dt.pseq)
+    jt = dict(pseq=pseq, counter=jnp.asarray(dt.counter),
+              index=jnp.asarray(dt.index),
+              start_index=jnp.asarray(dt.start_index),
+              bucket_flagged=jnp.asarray(dt.bucket_flagged),
+              key_words=jnp.zeros((1, 1), jnp.uint32))
+    jx = {}
+    if rung == "uniq":
+        uw, uo, uc, jbits = jdi.build_uniq_device(
+            pseq, jt["index"], jt["counter"], PATTERN)
+        assert jbits == ubits
+        jx = dict(uniq_words=uw, uniq_off=uo, uniq_counter=uc,
+                  uniq_bits=jbits)
+    elif rung == "key16":
+        jt["key_words"] = jdi.build_key16_device(pseq, ht.index, PATTERN)
+    else:
+        jt["key_words"] = jdi.build_key_words_device(pseq, ht.index, PATTERN,
+                                                     n_key_words=1)
+    for stage in CHECKED:
+        want = jpipe.map_strand_stage(
+            jnp.asarray(preads), jnp.asarray(lens), jnp.int32(5000),
+            jnp.int32(6), *(jt[k] for k in ORDER), stage_out=stage, **kw,
+            **jx)
+        assert _checksum(stage, live[stage], False) == int(want), stage
+
+
+def test_routed_boundaries_give_walt_tpu_stage_checksums(host_tables,
+                                                         shards):
+    """Both shards of a routed tp=2 split: the port's keys mark sits after
+    the route compaction (walt_tpu's hook sits before it), and its routed
+    checksum reads only in_range and the unrouted flags, which the
+    compaction leaves as they were."""
+    preads, lens = _reads(host_tables[0][0], _mixed_lengths(96, 8), seed=6)
+    for s in range(2):
+        log = st.StageLog()
+        _routed(shards, s, preads, lens, log)
+        live = {m.name: m.live for m in log.marks}
+        table, uniq = _shard_inputs(shards, s)
+        for stage in CHECKED:
+            want = jpipe.map_strand_core(
+                jnp.asarray(preads), jnp.asarray(lens), jnp.int32(5000),
+                jnp.int32(6), *(jnp.asarray(a) for a in table),
+                pattern_name="3", ag_wildcard=False,
+                search_bits=shards.max_bucket_bits, verify_slab=8,
+                wl_factor=1.5, uniq_words=jnp.asarray(uniq[0]),
+                uniq_off=jnp.asarray(uniq[1]),
+                uniq_counter=jnp.asarray(uniq[2]),
+                uniq_bits=shards.uniq_bits, key_base=int(shards.key_base[s]),
+                tp_route=2, stage_out=stage)
+            assert _checksum(stage, live[stage], True) == int(want), \
+                (s, stage)
+
+
+def _drive(timer, tail: bool):
+    """Two strand passes and a fold through ``timer``'s boundaries, with a
+    stand-in launch (a named record_function range) in every stage, and
+    with ``tail`` one more after pass 0's last mark."""
+    def launch(name):
+        with torch.profiler.record_function(f"launch:{name}"):
+            pass
+
+    for t in (0, 1):
+        timer.begin(t)
+        for s in st.STRAND_STAGES:
+            launch(f"{t}.{s}")
+            timer.mark(s)
+        if tail and t == 0:
+            launch("tail")
+        timer.end()
+    launch("fold")
+    timer.mark("fold")
+
+
+def _with_device_records(events, late_us: float):
+    """The trace plus a kernel for each stand-in launch: its host call at
+    the launch's time, its device time ``late_us`` later."""
+    out = list(events)
+    launches = [e for e in events if e.get("cat") == "user_annotation"
+                and e["name"].startswith("launch:")]
+    for corr, e in enumerate(launches, 1):
+        ts = float(e["ts"])
+        out.append(dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel",
+                        ts=ts, dur=1.0, args=dict(correlation=corr)))
+        name = e["name"][len("launch:"):]
+        if name.endswith(".verify"):
+            name = "void verify_stage_kernel<7>(waltx::StageArgs)"
+        out.append(dict(ph="X", cat="kernel", name=name, ts=ts + late_us,
+                        dur=2.0, args=dict(correlation=corr)))
+    return out
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_device_split_attributes_by_launch(fake_events, tail):
+    from torch.profiler import ProfilerActivity, profile
+
+    timer = st.CudaStageTimer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _drive(timer, tail)
+    path = os.path.join(ROOT, "build", f"stage_trace_test_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(path)
+    # every kernel runs long after its launch, inside later stages' ranges
+    # on the host timeline
+    split = timer.device_split(_with_device_records(events, late_us=5e4))
+    for t in (0, 1):
+        for s in st.STRAND_STAGES:
+            rec = split[(t, s)]
+            assert rec["launches"] == 1 and set(rec["names"]) == {
+                "void verify_stage_kernel<7>(waltx::StageArgs)"
+                if s == "verify" else f"{t}.{s}"}
+            assert rec["busy_ms"] == pytest.approx(0.002)
+    assert set(split[(None, "fold")]["names"]) == {"fold"}
+    assert split[(0, "strand")]["launches"] == 6 + tail
+    assert split[(1, "strand")]["launches"] == 6
+    if tail:
+        assert split[(None, None)]["launches"] == 1
+        with pytest.raises(AssertionError, match="outside any stage"):
+            chip_smoke.check_stage_split(timer, split, 2, "fold")
+    else:
+        assert (None, None) not in split
+        chip_smoke.check_stage_split(timer, split, 2, "fold")
+    assert st.unmatched_device_events(
+        _with_device_records(events, 5e4)) == 0
+
+
+def test_timer_refuses_marks_outside_its_order(fake_events):
+    timer = st.CudaStageTimer()
+    with pytest.raises(RuntimeError, match="before any strand pass"):
+        timer.mark("fold")
+    timer.begin(0)
+    with pytest.raises(RuntimeError, match="already open"):
+        timer.begin(1)
+    timer.end()
+    with pytest.raises(RuntimeError, match="no strand pass"):
+        timer.end()
+
+
+def test_tool_rehearses_on_cpu(tmp_path, my_index, se_fastq):
+    out = tmp_path / "devprof.json"
+    root_report = os.path.join(ROOT, "DEVPROF_TORCH.json")
+    before = os.stat(root_report).st_mtime_ns \
+        if os.path.exists(root_report) else None
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("WALTX_PROF")}
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "device_profile_torch.py"),
+         my_index, se_fastq, "256", "--device", "cpu", "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rep = json.loads(proc.stdout)
+    for k in ("chunk", "W", "search_bits", "uniq_bits", "full_mask",
+              "device", "seconds", "us_per_read_full_se", "stage_ms",
+              "stage_busy_ms", "stage_launches", "stage_idle_share"):
+        assert k in rep, k
+    assert rep["chunk"] == 256 and rep["W"] == 5  # 80 bp reads
+    assert set(rep["seconds"]) == {"rtt", "strand", "full_se",
+                                   "full_se_seed0"}
+    assert rep["us_per_read_full_se"] is None
+    want = [f"CT0{t}.{s}" for t in (0, 1) for s in st.STRAND_STAGES]
+    totals = ["CT00.strand", "CT01.strand"]
+    for mode, step in (("se", "fold"), ("pe", "flat")):
+        assert list(rep["stage_ms"][mode]) == want + [step] + totals
+        assert list(rep["stage_launches"][mode]) == (want + [step] + totals
+                                                     + ["unstaged"])
+        assert not any(rep["stage_busy_ms"][mode].values())
+    assert rep["device"].startswith("cpu rehearsal")
+    assert not out.exists()
+    assert (os.stat(root_report).st_mtime_ns
+            if os.path.exists(root_report) else None) == before

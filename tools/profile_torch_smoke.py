@@ -41,21 +41,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, cur_s, cur_e = 0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def main(out_dir: str) -> int:
     import torch
 
@@ -204,6 +189,8 @@ def profiled(label: str, fn, dev, table_path: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from walt_tpu_torch.ops.stages import union_us
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -213,7 +200,7 @@ def profiled(label: str, fn, dev, table_path: str) -> None:
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     iv = [(e.time_range.start, e.time_range.end) for e in evs]
-    busy = busy_us(iv)
+    busy = union_us(iv)
     span = (max(e for _, e in iv) - min(s for s, _ in iv)) if iv else 0
     by_name = {}
     for e in evs:

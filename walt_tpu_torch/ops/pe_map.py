@@ -29,6 +29,7 @@ import torch
 
 from walt_tpu_torch.ops import pipeline
 from walt_tpu_torch.ops.packing import MASK32, to_i32
+from walt_tpu_torch.ops.stages import PE_STEP_STAGE, strand_pass
 
 #: PE tier-1 verify slab, worklist slots per read and flat slots per read:
 #: the JAX package's PE values (its ``WALTX_PE_SLAB/WL/FLAT`` defaults,
@@ -71,27 +72,35 @@ def map_mate_device(preads, lens, b: int, max_mm: int, tables, *,
                     pattern_name: str, ag_wildcard: bool, search_bits: tuple,
                     verify_slab: int, cand_slab: int, wl_factor: float,
                     flat_factor: int, exact_b: bool = False,
-                    uniq_bits: tuple = (0, 0), full_mask: bool = False):
+                    uniq_bits: tuple = (0, 0), full_mask: bool = False,
+                    stages=None):
     """One mate against both strand tables -> (meta (B,), flat (M, 2)).
 
     ``tables``: two device-table dicts, '+' first (the file order of
     paired.cpp:660-661); ``search_bits``/``uniq_bits``: one per table.
     The backend passes the PE shapes (:data:`VERIFY_SLAB`,
-    :data:`WL_FACTOR`, :data:`FLAT_FACTOR`).
+    :data:`WL_FACTOR`, :data:`FLAT_FACTOR`).  ``stages``: a recorder of
+    ``ops/stages``: each strand pass is one of its passes (table index 0,
+    1), then the flat compaction is marked ``flat``.
     """
     wls, cnts, fb = [], [], None
-    for t, bits, ubits in zip(tables, search_bits, uniq_bits):
-        wl, cnt, f = pipeline.map_strand_core(
-            preads, lens, b, max_mm, t["pseq"], t["counter"], t["index"],
-            t["key_words"], t["start_index"], t["bucket_flagged"],
-            pattern_name=pattern_name, ag_wildcard=ag_wildcard,
-            search_bits=bits, verify_slab=verify_slab, cand_slab=cand_slab,
-            wl_factor=wl_factor, exact_b=exact_b,
-            uniq_words=t.get("uniq_words"), uniq_off=t.get("uniq_off"),
-            uniq_counter=t.get("uniq_counter"), uniq_bits=ubits,
-            full_mask=full_mask, emit_wl=True,
-        )
+    for i, (t, bits, ubits) in enumerate(zip(tables, search_bits,
+                                             uniq_bits)):
+        with strand_pass(stages, i):
+            wl, cnt, f = pipeline.map_strand_core(
+                preads, lens, b, max_mm, t["pseq"], t["counter"], t["index"],
+                t["key_words"], t["start_index"], t["bucket_flagged"],
+                pattern_name=pattern_name, ag_wildcard=ag_wildcard,
+                search_bits=bits, verify_slab=verify_slab,
+                cand_slab=cand_slab, wl_factor=wl_factor, exact_b=exact_b,
+                uniq_words=t.get("uniq_words"), uniq_off=t.get("uniq_off"),
+                uniq_counter=t.get("uniq_counter"), uniq_bits=ubits,
+                full_mask=full_mask, emit_wl=True, stages=stages,
+            )
         wls.append(wl)
         cnts.append(cnt)
         fb = f if fb is None else (fb | f)
-    return flat_from_wl(wls, cnts, fb, flat_factor, cand_slab)
+    out = flat_from_wl(wls, cnts, fb, flat_factor, cand_slab)
+    if stages is not None:
+        stages.mark(PE_STEP_STAGE, meta=out[0], flat=out[1])
+    return out

@@ -33,8 +33,14 @@ With ``key_base`` the table is one tp shard of a bucket-range split
 (``walt_tpu_torch.parallel.sharded``): keys outside the shard's buckets
 yield empty regions, and with ``tp_route`` the (read, seed) pairs the shard
 owns are compacted first, so everything from the search down runs at about
-1/T of the unsharded size.  ``stage_out`` (walt_tpu's XLA stage profiler) is
-not ported.
+1/T of the unsharded size.
+
+``stages`` takes the place of walt_tpu's ``stage_out`` profiling hook (the
+truncated-program checksums): a recorder of ``ops/stages`` that the pass
+marks at each stage boundary (keys, search, membership, worklist, verify,
+compact) with the tensors alive there; its CUDA timer gives each stage's
+stream time and, under ``torch.profiler``, its device busy time and
+launches.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.ops import packing, verify
 from walt_tpu_torch.ops.packing import MASK32, u32
+from walt_tpu_torch.ops.stages import marker
 
 #: tier-1 verify slab: refined entries verified per (read, seed)
 VERIFY_SLAB_T1 = 8
@@ -134,7 +141,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
                     uniq_words=None, uniq_off=None, uniq_counter=None,
                     uniq_bits: int = 0, full_mask: bool = False,
                     key_base: int | None = None, tp_route: int = 0,
-                    emit_wl: bool = False):
+                    emit_wl: bool = False, stages=None):
     """Map a read batch against one table.
 
     preads: (B, W) int32 packed read codes (u32 bits); lens: (B,) int32;
@@ -169,7 +176,11 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     ``((wl_read, col, pos, mm, shift, keep), cand_cnt, fallback)``: (M,)
     int64 rows (``keep`` bool), where ``col`` is a kept row's rank among
     its read's kept rows (its slab column; ``cand_slab`` on dropped rows).
+
+    ``stages``: a recorder of ``ops/stages`` (None: nothing is recorded);
+    the pass calls its ``mark`` after each of ``stages.STRAND_STAGES``.
     """
+    mark = marker(stages)
     pattern = get_pattern(pattern_name)
     plen = pattern.pattern_len
     seeds = tuple(range(plen)) if seeds is None else seeds
@@ -289,6 +300,9 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
             return torch.zeros(B, dtype=torch.int64, device=dev).index_add_(
                 0, r_read, (v & rvalid).to(torch.int64)) > 0
 
+    mark("keys", lo=lo, hi=hi, flagged=flagged,
+         in_range=None if key_base is None else in_range)
+
     # key words probed by the search and slab admission; the fast path
     # defers words beyond the first to the window cared check
     nprobe = npw if exact_b else 1
@@ -348,6 +362,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
             ehi = _take(uniq_off, l2).to(torch.int64)
         lower = elo
         run_len = torch.clamp(ehi - elo, min=0)
+    mark("search", lower=lower, run_len=run_len)
 
     # --- slab membership: an entry is in the reference's refined range iff
     # its masked key words EQUAL the read's masked prefix words
@@ -382,6 +397,8 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     row_ok = read_ok[r_read] if route else read_ok[:, None]
     keep_pre = (refined & ~capped[..., None] & ~overflow[..., None]
                 & row_ok[..., None])
+    mark("membership", refined_cnt=refined_cnt, overflow=overflow,
+         keep_pre=keep_pre)
 
     # --- compact the refined survivors into one flat cross-read worklist in
     # (read, seed asc, bucket position asc) order = examination order; a
@@ -420,6 +437,8 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         # kw+16 (key16: kw+8) .. seed_len-1 (mapping.cpp:198-222).  Those
         # bases sit inside the verify window, checked there.
         cared_np = window_cared_mask(pattern, seeds, W, key16)
+    mark("worklist", wl_src=wl_src, wl_entryidx=wl_entryidx,
+         wl_spill=wl_spill)
 
     # --- the verify stage, one fused kernel on a card (ops/verify): index
     # gather, chromosome bounds (mapping.cpp:282-286), the verify kernel,
@@ -431,6 +450,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
         cared_off=cared[:pattern.cared_weight], max_mm=max_mm, plen=plen,
         cwt=pattern.cared_weight, n_cared=n_cared,
     )
+    mark("verify", wl_gpos=wl_gpos, mm=mm, wl_keep=wl_keep)
 
     # --- ordered compaction into the per-read candidate slab ---
     keep64 = wl_keep.to(torch.int64)
@@ -458,6 +478,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     cand_cnt = torch.clamp(cnt, max=cand_slab).to(torch.int32)
     if emit_wl:
         wl = (wl_read, col, wl_gpos, mm, wl_shift, wl_keep)
+        mark("compact", wl=wl, cand_cnt=cand_cnt, fallback=fallback)
         return wl, cand_cnt, fallback
 
     # dropped rows and ranks past the slab land in the spare column
@@ -471,4 +492,6 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     cand_seed = compact(wl_shift, -1, torch.int8)
     cand_pos = compact(wl_gpos, 0, torch.int64)
     cand_mm = compact(mm, 0, torch.int32)
+    mark("compact", cand_seed=cand_seed, cand_pos=cand_pos, cand_mm=cand_mm,
+         cand_cnt=cand_cnt, fallback=fallback)
     return cand_seed, cand_pos, cand_mm, cand_cnt, fallback

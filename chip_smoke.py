@@ -15,10 +15,13 @@ Phases, one line of output each (any failure raises and exits non-zero):
    shapes: ``verify_windows`` (K1) on random rows, and ``verify_worklist``
    (the fused verify stage, the main path's kernel) on synthetic worklists
    in read order with chromosome edges and verify_skip rows.  Times each at
-   the SE main-path shape, as device time (torch.profiler) and as wall time
+   the SE main-path shape, as device time (torch.profiler, each window
+   after a warm-up call in the profiler's warm-up step) and as wall time
    per wrapper call (CUDA events); the fused stage in turns with the chain
    it replaced (the torch ops around K1: chain, kernel, kernel, chain) and
-   with its plain version, with the device events per call of each;
+   with its plain version, with the device events per call of each.  Each
+   kernel's window must hold exactly one device event per call (a short
+   window is profiled again, at most PROFILE_ATTEMPTS times);
 4. data: a 128 Mbp repetitive synthetic genome (about the size of the
    Arabidopsis thaliana genome, a standard WGBS organism), its WALT index,
    1,000,000 x 100 bp bisulfite reads and 500,000 x 100 bp bisulfite read
@@ -81,6 +84,17 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     stage, exactly one fused-stage launch in each pass's ``verify`` stage.
     Prints one line: per stage, stream ms, device busy ms and launches.
 
+15. tuning knobs (run last, on phase 11's 250,000 reads and 125,000
+    pairs, fresh backends, the environment restored after each run): SE
+    under ``WALTX_CHUNK=65536``, ``WALTX_WL1=1.25``, ``verify_slab_t1=16``
+    and a ``WALTX_HBM_GB`` that fits both tables' key16 key words but not
+    the uniq runs or u32 word 0; PE under ``WALTX_PE_SLAB/WL/FLAT`` = 8 / 2
+    / 8 and a ``WALTX_HBM_GB`` under which all four tables take u32 word 0.
+    The backend's own ladder must pick those rungs, MR and .mapstats must
+    equal phase 11's exact host path byte for byte, and each run must
+    launch the fused stage and not K1.  Prints one ``knobs`` line: rung
+    per table, shares, launches and seconds.
+
 Phases 5, 7, 9 and 10 print the working set, the peak reserved device
 memory less the resident tables' bytes and less what earlier phases still
 hold; the largest sets ``TorchBackend.HBM_RESERVE``, and the script fails
@@ -102,6 +116,7 @@ device time) and one JSON object ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -140,6 +155,9 @@ N_MESH_PAIRS = 125_000
 MIN_MESH_PE_SHARE = 0.65
 #: the uniq build's peak device memory above its table and outputs
 MAX_UNIQ_BUILD_GIB = 0.5
+#: profiling windows tried before a kernel's or a stage's device record
+#: counts as incomplete (the profiler can lose a window's first records)
+PROFILE_ATTEMPTS = 5
 #: phase 13's filler chromosome in front of phase 4's genome: a multiple of
 #: 16 (the packed words keep their bits), so phase 4's first chromosome
 #: straddles 2^31 and the genome ends at 2,243,483,648 < 2^32
@@ -310,31 +328,45 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, reps: int = 20):
+def device_profile(fn, reps: int = 20, events: int | None = None):
     """(mean device milliseconds, device events) per call of ``fn``: the
-    summed durations and the count of the device events torch.profiler
-    records over ``reps`` calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    summed durations and the count of the device events launched by
+    ``reps`` calls in one torch.profiler window.  One call runs first, in
+    the profiler's warm-up step (``ops/stages.profiled``): on an H100 a
+    window opened without it lost its first device records.  Only device
+    events whose launching host call lies in the window count (matched by
+    correlation id).  With ``events``, a window that does not hold exactly
+    that many per call, or lost the device record of one of its launches,
+    is profiled again, at most PROFILE_ATTEMPTS times."""
+    from walt_tpu_torch.ops import stages as st
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not evs:
-        raise RuntimeError("torch.profiler recorded no device events")
-    return (sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps,
-            len(evs) / reps)
+    trace = os.path.join(ROOT, "build", "device_profile_trace.json")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        _, evs = st.profiled(lambda: [fn() for _ in range(reps)], fn, trace)
+        os.unlink(trace)
+        launched = {e["args"]["correlation"]: e["name"] for e in evs
+                    if e.get("cat") in st.LAUNCH_CATS
+                    and "correlation" in e.get("args", {})}
+        dev = [e for e in evs if e.get("cat") in st.DEVICE_CATS
+               and e.get("args", {}).get("correlation") in launched]
+        if not dev:
+            raise RuntimeError("torch.profiler recorded no device events")
+        got = {e["args"]["correlation"] for e in dev}
+        lost = sum(1 for c, name in launched.items() if c not in got
+                   and any(w in name for w in st.LAUNCH_WORDS))
+        per_call = len(dev) / reps
+        if events is None or (per_call == events and not lost):
+            return sum(float(e["dur"]) for e in dev) / 1e3 / reps, per_call
+        say("kernel", f"profiling window {attempt}: {per_call} device events "
+                      f"per call, not {events}, {lost} launches without "
+                      f"their device record; profiling again")
+    raise AssertionError(f"no profiling window in {PROFILE_ATTEMPTS} held "
+                         f"{events} device events per call")
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, events: int | None = None) -> float:
     """Mean device milliseconds per call of ``fn`` (:func:`device_profile`)."""
-    return device_profile(fn, reps)[0]
+    return device_profile(fn, reps, events)[0]
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -534,11 +566,14 @@ def check_verify_kernel(device, Wg: int):
     plain = lambda: verify.verify_windows_reference(*args, MAIN_W)  # noqa: E731
     # in turns: plain, kernel, kernel, plain
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
-    dp1, dk1, dk2, dp2 = (device_ms(f) for f in (plain, kern, kern, plain))
+    # the kernel's windows hold exactly one device event per call
+    dp1, dk1, dk2, dp2 = (device_ms(f, events=1 if f is kern else None)
+                          for f in (plain, kern, kern, plain))
     pe_args = verify_inputs(rng, PE_M, MAIN_W, Wg, device)
-    pe_k, pe_p = (device_ms(lambda f=f: f(*pe_args, MAIN_W))
-                  for f in (verify.verify_windows,
-                            verify.verify_windows_reference))
+    pe_k = device_ms(lambda: verify.verify_windows(*pe_args, MAIN_W),
+                     events=1)
+    pe_p = device_ms(lambda: verify.verify_windows_reference(*pe_args,
+                                                             MAIN_W))
     k_bound = windows_bound(args, MAIN_W)
     pe_bound = windows_bound(pe_args, MAIN_W)
     say("kernel", f"verify_windows == plain on {len(shapes)} shapes "
@@ -619,12 +654,14 @@ def check_stage_kernel(device, Wg: int):
     chain = lambda: verify.verify_worklist_reference(*args, **kw)  # noqa: E731
     plain = lambda: verify.verify_worklist_reference(  # noqa: E731
         *args, **kw, windows=verify.verify_windows_reference)
-    c1, k1, k2, c2 = (device_profile(f) for f in (chain, kern, kern, chain))
+    c1, k1, k2, c2 = (device_profile(f, events=1 if f is kern else None)
+                      for f in (chain, kern, kern, chain))
     p1 = device_profile(plain)
     wc1, wk1, wk2, wc2 = (cuda_ms(f) for f in (chain, kern, kern, chain))
     wp1 = cuda_ms(plain)
     pe_args, pe_kw = main[PE_M]
-    pe_k = device_ms(lambda: verify.verify_worklist(*pe_args, **pe_kw))
+    pe_k = device_ms(lambda: verify.verify_worklist(*pe_args, **pe_kw),
+                     events=1)
     pe_c = device_ms(lambda: verify.verify_worklist_reference(*pe_args,
                                                               **pe_kw))
     b_ms, b_by = stage_bound(args, kw)
@@ -1491,6 +1528,107 @@ def shifted_phase(index, fastq, pe, se_sub, device, shares, F: int):
     return launches, mesh_launches
 
 
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set, restored whole afterwards: the
+    backend's knobs (``WALTX_CHUNK`` wins over explicit arguments) must not
+    reach a later backend."""
+    saved = dict(os.environ)
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def ladder_budget_gib(index: str, suffixes, kw_bytes: float) -> float:
+    """A ``WALTX_HBM_GB`` for the tables ``suffixes`` of ``index``: their
+    base bytes (``TorchBackend.base_bytes``) plus ``kw_bytes`` per entry,
+    plus ``HBM_RESERVE``, as tests/test_oom.py sizes its key16 budget.  The backend splits the free budget evenly over the tables not
+    yet built (``table_budget_hint``), so each table gets about its base
+    and ``kw_bytes`` per entry: 2.5 fits key16 (2 bytes per entry) but not
+    u32 word 0 (4) or the uniq runs (~7 or more); 4.5 fits word 0 but not
+    uniq on each of four tables (the last one built gets base + 6 per
+    entry)."""
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index import io_walt
+
+    gm, _ = io_walt.read_head(index)
+    total = TorchBackend.HBM_RESERVE
+    for suffix in suffixes:
+        g, ht = io_walt.read_table_cached(index + suffix, gm)
+        total += TorchBackend.base_bytes(g, ht) + kw_bytes * ht.index.shape[0]
+    return total / 2**30
+
+
+def knobs_phase(index, se_sub, pe_sub, device):
+    """Phase 15: the tuning knobs on the card, with fresh backends and the
+    environment restored after each run, on phase 11's reads and pairs.
+    SE: ``WALTX_CHUNK=65536``, ``WALTX_WL1=1.25``, ``verify_slab_t1=16`` and
+    a ``WALTX_HBM_GB`` that fits both tables on key16 only; PE:
+    ``WALTX_PE_SLAB/WL/FLAT`` 8 / 2 / 8 (walt_tpu's round-3 shapes) and a
+    ``WALTX_HBM_GB`` under which all four tables take u32 word 0.  Each
+    run's MR and .mapstats must equal phase 11's exact host path, its
+    tables take those rungs by the backend's own ladder, and the fused
+    stage is launched (K1 never)."""
+    from walt_tpu_torch.core.paired_end import process_paired_end
+    from walt_tpu_torch.core.single_end import process_single_end
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    work = os.path.dirname(index)
+    runs = [
+        ("SE", dict(WALTX_CHUNK=65536, WALTX_WL1=1.25,
+                    WALTX_HBM_GB=ladder_budget_gib(
+                        index, ("_CT00", "_CT01"), 2.5)),
+         dict(verify_slab_t1=16), "key16",
+         lambda b, out: process_single_end(index, se_sub, out, backend=b),
+         "mesh_exact.mr"),
+        ("PE", dict(WALTX_PE_SLAB=8, WALTX_PE_WL=2, WALTX_PE_FLAT=8,
+                    WALTX_HBM_GB=ladder_budget_gib(
+                        index, ("_CT00", "_CT01", "_GA10", "_GA11"), 4.5)),
+         {}, "u32 word0",
+         lambda b, out: process_paired_end(index, pe_sub[0], pe_sub[1], out,
+                                           backend=b),
+         "mesh_exact_pe.mr"),
+    ]
+    t0 = time.perf_counter()
+    notes = []
+    for mode, env, kw, rung, process, ref in runs:
+        out = os.path.join(work, f"knobs_{mode.lower()}.mr")
+        fresh(out)
+        with environ(**env):
+            rec = Recorder()
+            b = rec.watch(TorchBackend(device=device, **kw))
+            wl1 = b._wl1
+            zero_counts()
+            _, wall = timed(lambda: process(b, out))
+            c = counts()
+        same_bytes(out, os.path.join(work, ref), f"knobs {mode}")
+        rungs = dict(b.rungs)
+        share = rec.se_share() if mode == "SE" else rec.pe_share()
+        shape = (f"chunk {b.chunk}, slab {b.verify_slab_t1}, wl1 {wl1} "
+                 f"({b._wl1} at the end)" if mode == "SE" else
+                 f"slab {b.pe_verify_slab}, wl {b.pe_wl}, flat "
+                 f"{b.pe_flat_factor}")
+        b.free_tables()
+        del rec, b
+        if set(rungs.values()) != {rung} or len(rungs) != (2 if mode == "SE"
+                                                           else 4):
+            raise AssertionError(f"knobs {mode}: rungs {rungs}, not {rung} "
+                                 f"on every table")
+        if c["verify_worklist"] <= 0 or c["verify_windows"] != 0:
+            raise AssertionError(f"knobs {mode}: launches {c}: the fused "
+                                 f"stage must run, K1 never")
+        notes.append(f"{mode} ({shape}, WALTX_HBM_GB "
+                     f"{env['WALTX_HBM_GB']:.3f}): rungs {rungs}, share "
+                     f"{share:.4f}, launches {c}, {wall:.2f} s (tables "
+                     f"included)")
+    say("knobs", f"phase 15, byte-identical to phase 11's exact host path, "
+                 f"each table's rung by the backend's own ladder, in "
+                 f"{time.perf_counter() - t0:.1f} s: " + "; ".join(notes))
+
+
 #: most a pass's stage sums may differ from its totals (busy time, launches)
 STAGE_SUM_TOL = 0.02
 
@@ -1539,10 +1677,6 @@ def check_stage_split(timer, split, n_pass: int, step_stage) -> None:
     if fused != n_pass:
         raise AssertionError(f"{fused} fused-stage launches in {n_pass} "
                              f"passes")
-
-
-#: profiling windows tried before a stage record counts as incomplete
-PROFILE_ATTEMPTS = 5
 
 
 def profiled_stages(step, device, n_pass: int, step_stage, trace: str,
@@ -1741,6 +1875,7 @@ def main() -> int:
     launches_shifted, launches_shifted_mesh = shifted_phase(
         index, fastq, pe, se_sub, device, (share, pe_share),
         straddling_filler(index))
+    knobs_phase(index, se_sub, pe_sub, device)
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 

@@ -24,6 +24,10 @@ profiler, on the CPU at a toy size.
   ``chip_smoke.check_stage_split`` refuses it.
 - ``tools/device_profile_torch.py --device cpu`` prints the report's keys
   and stage names and writes no file.
+- ``chip_smoke.device_profile`` (phase 3) on made-up traces: it counts
+  only device events launched in its window (not a warm-up call's record
+  or the profiler's step range) and profiles a window that lost a launch's
+  device record again, at most ``PROFILE_ATTEMPTS`` times.
 """
 
 import json
@@ -475,3 +479,54 @@ def test_tool_rehearses_on_cpu(tmp_path, my_index, se_fastq):
     assert not out.exists()
     assert (os.stat(root_report).st_mtime_ns
             if os.path.exists(root_report) else None) == before
+
+
+def _window(reps, lose=()):
+    """A made-up chrome trace of ``reps`` one-kernel calls (10 us each,
+    correlations 1..reps), less the device records of ``lose``, with a
+    kernel of the warm-up call (correlation 0, launched before the window),
+    the profiler's step range and a synchronize (no device record)."""
+    evs = [dict(cat="kernel", name="verify_kernel", ts=0.0, dur=99.0,
+                args=dict(correlation=0)),
+           dict(cat="gpu_user_annotation", name="ProfilerStep#1", ts=0.0,
+                dur=500.0),
+           dict(cat="cuda_runtime", name="cudaDeviceSynchronize", ts=400.0,
+                dur=1.0, args=dict(correlation=99))]
+    for c in range(1, reps + 1):
+        evs.append(dict(cat="cuda_runtime", name="cudaLaunchKernel",
+                        ts=10.0 * c, dur=1.0, args=dict(correlation=c)))
+        if c not in lose:
+            evs.append(dict(cat="kernel", name="verify_kernel",
+                            ts=10.0 * c + 5, dur=10.0,
+                            args=dict(correlation=c)))
+    return evs
+
+
+@pytest.mark.parametrize("windows,attempts", [
+    ([()], 1), ([(2,), (1, 3), ()], 3), ([(1,)] * chip_smoke.PROFILE_ATTEMPTS,
+                                         None)],
+    ids=["whole", "two-short", "always-short"])
+def test_device_profile_counts_the_window_and_retries(monkeypatch, tmp_path,
+                                                      windows, attempts):
+    made = []
+
+    def fake_profiled(fn, warmup, trace_path):
+        open(trace_path, "w").close()
+        made.append(trace_path)
+        return None, _window(4, windows[len(made) - 1])
+
+    monkeypatch.setattr(st, "profiled", fake_profiled)
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    os.makedirs(tmp_path / "build")
+    if attempts is None:
+        with pytest.raises(AssertionError, match="no profiling window"):
+            chip_smoke.device_profile(lambda: None, reps=4, events=1)
+        assert len(made) == chip_smoke.PROFILE_ATTEMPTS
+        return
+    ms, per_call = chip_smoke.device_profile(lambda: None, reps=4, events=1)
+    assert (ms, per_call) == (0.01, 1.0) and len(made) == attempts
+    assert not any(os.path.exists(p) for p in made)
+    # without a count to hold, the first window is taken as it is
+    monkeypatch.setattr(st, "profiled", lambda fn, warmup, trace_path: (
+        open(trace_path, "w").close(), _window(4, (2,))))
+    assert chip_smoke.device_profile(lambda: None, reps=4) == (0.0075, 0.75)

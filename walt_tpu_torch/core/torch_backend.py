@@ -92,8 +92,14 @@ class TorchBackend:
                  small_chunk: int = 2048,
                  verify_slab: int = pipeline.VERIFY_SLAB,
                  cand_slab: int = pipeline.CAND_SLAB,
+                 verify_slab_t1: int = pipeline.VERIFY_SLAB_T1,
                  mesh=None, tp: int | None = None, tp_accel: str = "uniq"):
-        """``mesh``: a :class:`walt_tpu_torch.parallel.Mesh`, the string
+        """``chunk``: reads per device chunk; ``WALTX_CHUNK``, when set,
+        wins over the argument (as for walt_tpu).  ``verify_slab_t1``: the
+        SE tier-1 verify slab (phases A and B, and the first pass of
+        ``map_strand_slabs``).
+
+        ``mesh``: a :class:`walt_tpu_torch.parallel.Mesh`, the string
         "auto" (every visible CUDA device when ``device`` is CUDA and there
         is more than one, split ``tp`` ways; else no mesh), or None (the one
         ``device``).  With a mesh, ``device`` is the mesh's first device.
@@ -123,10 +129,11 @@ class TorchBackend:
         self.mesh = mesh
         self.tp_accel = tp_accel
         self._dp = mesh.shape["dp"] if mesh is not None else 1
-        self.chunk = chunk
+        self.chunk = int(os.environ.get("WALTX_CHUNK", chunk))
         self.small_chunk = small_chunk
         self.verify_slab = verify_slab
         self.cand_slab = cand_slab
+        self.verify_slab_t1 = verify_slab_t1
         self._tables = {}
         #: table keys whose build already failed the memory budget; the
         #: failure is deterministic, so later batches short-circuit.  Values
@@ -146,14 +153,24 @@ class TorchBackend:
 
     def reset_adaptive(self):
         """Reset the per-workload throughput heuristics (between files, so
-        file N's phase schedule never depends on file N-1's reads)."""
+        file N's phase schedule never depends on file N-1's reads), and
+        read the shape knobs again from the environment, with walt_tpu's
+        names and defaults: ``WALTX_WL1`` (SE tier-1 worklist slots per
+        read), ``WALTX_PE_SLAB``, ``WALTX_PE_WL`` and ``WALTX_PE_FLAT`` (the
+        PE mate step's verify slab, worklist and flat slots per read).
+        They change which reads fall back, never the output."""
         # measured fraction of reads whose best hit resolves at seed 0 with
         # 0 mismatches (the early exit, mapping.cpp:248-263); decides
         # whether a dedicated seed-0 phase pays for itself
         self._seed0_rate = None
         # tier-1 worklist slots per read (the JAX package's tuned value);
         # widened for workloads that spill
-        self._wl1 = 1.5
+        self._wl1 = float(os.environ.get("WALTX_WL1", pipeline.WL1))
+        self.pe_verify_slab = int(os.environ.get("WALTX_PE_SLAB",
+                                                 pe_map.VERIFY_SLAB))
+        self.pe_wl = float(os.environ.get("WALTX_PE_WL", pe_map.WL_FACTOR))
+        self.pe_flat_factor = int(os.environ.get("WALTX_PE_FLAT",
+                                                 pe_map.FLAT_FACTOR))
 
     # ---- tables ----------------------------------------------------------
     def _device_table(self, genome: Genome, table: HashTable,
@@ -231,10 +248,24 @@ class TorchBackend:
         return dt, grid
 
     def _hbm_budget(self) -> int | None:
-        """Device memory in bytes, or None when unconstrained (CPU)."""
+        """Device memory budget in bytes: ``WALTX_HBM_GB`` (GiB) when set,
+        on any device; else the card's memory, or None (unconstrained) on
+        the CPU."""
+        env = os.environ.get("WALTX_HBM_GB")
+        if env:
+            return int(float(env) * (1 << 30))
         if self.device.type != "cuda":
             return None
         return int(torch.cuda.mem_get_info(self.device)[1])
+
+    @staticmethod
+    def base_bytes(genome: Genome, table: HashTable) -> int:
+        """Device bytes of a table without its key structure (packed genome
+        words, counter, index, chromosome starts, bucket flags), from the
+        raw table: what the memory ladder checks before its host prep."""
+        nb1 = int(table.counter.shape[0])
+        return (len(genome.seq) // 4 + 268 + 4 * nb1 + table.index.nbytes
+                + genome.start_index.nbytes + (nb1 - 1))
 
     def _resident_bytes(self) -> int:
         return sum(_nbytes(v) for entry in self._tables.values()
@@ -261,9 +292,7 @@ class TorchBackend:
             free = free // remaining
         # the base footprint is computable from the raw table: check it
         # before the host prep so an over-budget table costs nothing
-        nb1 = int(table.counter.shape[0])
-        base = (len(genome.seq) // 4 + 268 + 4 * nb1 + table.index.nbytes
-                + genome.start_index.nbytes + (nb1 - 1))
+        base = self.base_bytes(genome, table)
         if free is not None and base > free:
             raise HbmBudgetError(
                 f"table needs {base / 2**30:.2f} GB but only "
@@ -379,7 +408,7 @@ class TorchBackend:
 
     def _needed_key_words(self, b: int) -> int:
         """1 word when no tier can take the exact_b path, else all 3."""
-        slabs = max(512, self.verify_slab, pipeline.VERIFY_SLAB_T1)
+        slabs = max(512, self.verify_slab, self.verify_slab_t1)
         return 1 if b >= slabs else 3
 
     def _chunks(self, codes: np.ndarray, lens: np.ndarray,
@@ -500,7 +529,7 @@ class TorchBackend:
         # depends on the workload's error profile, so the observed resolve
         # rate decides.
         if self._seed0_rate is None or self._seed0_rate >= 0.5:
-            out = run(codes, lens, (0,), pipeline.VERIFY_SLAB_T1,
+            out = run(codes, lens, (0,), self.verify_slab_t1,
                       wl_factor=self._wl1)
             pos, times, minus, mm, fb = out
             resolved = (mm == 0) & ~fb
@@ -513,9 +542,9 @@ class TorchBackend:
             if todo.size:
                 merge(out, todo,
                       run(codes[todo], lens[todo], None,
-                          pipeline.VERIFY_SLAB_T1, wl_factor=self._wl1))
+                          self.verify_slab_t1, wl_factor=self._wl1))
         else:
-            out = run(codes, lens, None, pipeline.VERIFY_SLAB_T1,
+            out = run(codes, lens, None, self.verify_slab_t1,
                       wl_factor=self._wl1)
             pos, times, minus, mm, fb = out
         if self._wl1 < pipeline.WL_FACTOR and n and fb.mean() > 0.05:
@@ -568,6 +597,7 @@ class TorchBackend:
                 devs.append(dev)
                 bits.append(dt.max_bucket_bits)
                 ubits.append(dt.uniq_bits)
+            slab = self.pe_verify_slab or self.verify_slab_t1
             spans, results = [], []
             step = (pe_map.map_mate_device if self.mesh is None else
                     functools.partial(sharded.map_mate_sharded,
@@ -576,10 +606,11 @@ class TorchBackend:
                 results.extend(step(
                     pc, pl, b, max_mismatches, tuple(devs),
                     pattern_name=pattern.name, ag_wildcard=ag_wildcard,
-                    search_bits=tuple(bits), verify_slab=pe_map.VERIFY_SLAB,
-                    cand_slab=self.cand_slab, wl_factor=pe_map.WL_FACTOR,
-                    exact_b=b < pe_map.VERIFY_SLAB,
-                    flat_factor=pe_map.FLAT_FACTOR, uniq_bits=tuple(ubits),
+                    search_bits=tuple(bits), verify_slab=slab,
+                    cand_slab=self.cand_slab,
+                    wl_factor=self.pe_wl or self._wl1, exact_b=b < slab,
+                    flat_factor=self.pe_flat_factor or pe_map.FLAT_FACTOR,
+                    uniq_bits=tuple(ubits),
                     full_mask=self._full_mask(lens[a:z], pattern),
                 ))
                 spans.append((a, z))
@@ -761,7 +792,7 @@ class TorchBackend:
                     o[a:z] = x[: z - a]
             return out
 
-        out = run(codes, lens, pipeline.VERIFY_SLAB_T1)
+        out = run(codes, lens, self.verify_slab_t1)
         # chunks bounded so the tier worklists (wl_factor x chunk rows)
         # stay small
         for slab, chunk in ((self.verify_slab, 8192), (512, 256)):

@@ -32,8 +32,9 @@ from walt_tpu_torch.ops.packing import MASK32, to_i32
 from walt_tpu_torch.ops.stages import PE_STEP_STAGE, strand_pass
 
 #: PE tier-1 verify slab, worklist slots per read and flat slots per read:
-#: the JAX package's PE values (its ``WALTX_PE_SLAB/WL/FLAT`` defaults,
-#: chosen by tools/pe_tune.py on a TPU v5e; not yet tuned on an NVIDIA card)
+#: the defaults of the backend's ``WALTX_PE_SLAB/WL/FLAT``, the JAX
+#: package's (chosen by tools/pe_tune.py on a TPU v5e);
+#: tools/pe_tune_torch.py sweeps them on an NVIDIA card (PERF.md)
 VERIFY_SLAB = 16
 WL_FACTOR = 3
 FLAT_FACTOR = 12

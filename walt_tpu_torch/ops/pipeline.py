@@ -61,6 +61,9 @@ VERIFY_SLAB = 64
 CAND_SLAB = 32
 #: worklist slots per read in a chunk; spills take the host path
 WL_FACTOR = 4
+#: SE tier-1 worklist slots per read (the backend's ``WALTX_WL1`` default,
+#: walt_tpu's: survivors average ~1.2 per read on its TPU v5e profile)
+WL1 = 1.5
 
 #: per-device CSR entry-count ceiling: entry INDICES are < 2^31 (int32 in
 #: the resident tables); genome POSITIONS are u32 (4 Gbp format limit)

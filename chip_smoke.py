@@ -95,6 +95,17 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     launch the fused stage and not K1.  Prints one ``knobs`` line: rung
     per table, shares, launches and seconds.
 
+16. dp scaling (after phase 15, on phase 4's index): the measurement of
+    ``tools/dp_scaling_torch.py`` on 131,072 reads per mesh size, 2 reps
+    each, without its end-to-end calls: dp = 1, 2 and 4 at tp = 1 (rows
+    over the cards when the machine has as many, else virtual on card 0;
+    each dp row on a host thread of its own), then tp = 1 against tp = 2.  Each dp program's result must
+    equal its serial chunks' element for element, with the same fused
+    stage launches and no K1, and the main thread's current CUDA device
+    must be what it was.  Prints one ``dp`` line: per mesh size the device
+    program's reads/s, its implied (virtual) or real efficiency and its
+    launches.
+
 Phases 5, 7, 9 and 10 print the working set, the peak reserved device
 memory less the resident tables' bytes and less what earlier phases still
 hold; the largest sets ``TorchBackend.HBM_RESERVE``, and the script fails
@@ -110,8 +121,9 @@ inputs need at 3.35 TB/s or their integer operations, whichever is larger;
 ``launches`` and ``launches_pe`` count the launches of the timed SE and PE
 CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
 and PE runs, ``launches_shifted`` and ``launches_shifted_mesh`` those of
-phase 13's CLI run and mesh runs; ``chain_ms`` is the replaced chain's
-device time) and one JSON object ``{"ok": true, "device": {...}}``.
+phase 13's CLI run and mesh runs, ``launches_dp`` those of phase 16;
+``chain_ms`` is the replaced chain's device time) and one JSON object
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -301,12 +313,17 @@ class Recorder:
         return max(top, default=0)
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """nvidia-smi's name and power limit of each card."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def cuda_ms(fn, reps: int = 50) -> float:
@@ -335,9 +352,10 @@ def device_profile(fn, reps: int = 20, events: int | None = None):
     the profiler's warm-up step (``ops/stages.profiled``): on an H100 a
     window opened without it lost its first device records.  Only device
     events whose launching host call lies in the window count (matched by
-    correlation id).  With ``events``, a window that does not hold exactly
-    that many per call, or lost the device record of one of its launches,
-    is profiled again, at most PROFILE_ATTEMPTS times."""
+    correlation id).  A window that holds no device event, or, with
+    ``events``, does not hold exactly that many per call or lost the device
+    record of one of its launches, is profiled again, at most
+    PROFILE_ATTEMPTS times."""
     from walt_tpu_torch.ops import stages as st
 
     trace = os.path.join(ROOT, "build", "device_profile_trace.json")
@@ -349,19 +367,17 @@ def device_profile(fn, reps: int = 20, events: int | None = None):
                     and "correlation" in e.get("args", {})}
         dev = [e for e in evs if e.get("cat") in st.DEVICE_CATS
                and e.get("args", {}).get("correlation") in launched]
-        if not dev:
-            raise RuntimeError("torch.profiler recorded no device events")
         got = {e["args"]["correlation"] for e in dev}
         lost = sum(1 for c, name in launched.items() if c not in got
                    and any(w in name for w in st.LAUNCH_WORDS))
         per_call = len(dev) / reps
-        if events is None or (per_call == events and not lost):
+        if dev and (events is None or (per_call == events and not lost)):
             return sum(float(e["dur"]) for e in dev) / 1e3 / reps, per_call
         say("kernel", f"profiling window {attempt}: {per_call} device events "
-                      f"per call, not {events}, {lost} launches without "
-                      f"their device record; profiling again")
+                      f"per call (want {events or 'some'}), {lost} launches "
+                      f"without their device record; profiling again")
     raise AssertionError(f"no profiling window in {PROFILE_ATTEMPTS} held "
-                         f"{events} device events per call")
+                         f"{events or 'any'} device events per call")
 
 
 def device_ms(fn, reps: int = 20, events: int | None = None) -> float:
@@ -1813,6 +1829,60 @@ def stage_phase(single, index, fastq, pe, device) -> None:
                   f"{time.perf_counter() - t0:.1f} s: " + "; ".join(lines))
 
 
+#: mesh sizes of phase 16 (dp, at tp = 1) and its reps per measurement;
+#: it leaves out the tool's end-to-end calls (the mesh's slab tiers, 70-100
+#: s of the phase on one H100; phases 9 and 11 map the mesh end to end)
+DP_SIZES, DP_REPS = (1, 2, 4), 2
+
+
+def dp_phase(index: str, device) -> dict:
+    """Phase 16: ``tools/dp_scaling_torch.measure`` on phase 4's index,
+    one main-path chunk of reads per mesh size.  Returns its launches."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import dp_scaling_torch as dps
+
+    genome, tables = dps.index_genome(index), dps.index_tables(index)
+    current = torch.cuda.current_device()
+    zero_counts()
+    rows, wall = timed(lambda: dps.measure(genome, tables, MAIN_B, device,
+                                           sizes=DP_SIZES, reps=DP_REPS,
+                                           end_to_end=False))
+    c = counts()
+    if torch.cuda.current_device() != current:
+        raise AssertionError(f"dp: the mesh calls moved the current device "
+                             f"from {current} to "
+                             f"{torch.cuda.current_device()}")
+    notes = []
+    for r in rows:
+        if "devices" not in r:
+            notes.append(f"tp={r['tp']}{' virtual' if r['virtual'] else ''} "
+                         f"{r['device_program_s'] * 1e3:.2f} ms")
+            continue
+        nd, got = r["devices"], r["launches"]
+        if not r["results_equal"]:
+            raise AssertionError(f"dp={nd}: the dp program's result differs "
+                                 f"from its serial chunks'")
+        if got != r["serial_launches"] or got["verify_windows"] or \
+                got["verify_worklist"] <= 0:
+            raise AssertionError(f"dp={nd}: launches {got}, serial chunks "
+                                 f"{r['serial_launches']}: the fused stage "
+                                 f"must run as often, K1 never")
+        eff = (f"implied {r['implied_dp_efficiency']:.3f}" if r["virtual"]
+               else f"speedup {r['speedup_vs_1dev']:.3f}, efficiency "
+                    f"{r['dp_efficiency']:.3f}")
+        notes.append(f"dp={nd}{' virtual' if r['virtual'] else ''} "
+                     f"{r['device_program_reads_per_s']:.1f} reads/s "
+                     f"({eff}), {got['verify_worklist']} launches")
+    if c["verify_worklist"] <= 0 or c["verify_windows"]:
+        raise AssertionError(f"dp: launches {c}: the fused stage must run, "
+                             f"K1 never")
+    say("dp", f"phase 16, {MAIN_B} reads per mesh size, results equal to "
+              f"the serial chunks', in {wall:.1f} s: " + "; ".join(notes))
+    return c
+
+
 def mesh_dryrun() -> None:
     """Phase 12."""
     from walt_tpu_torch import entry
@@ -1876,6 +1946,7 @@ def main() -> int:
         index, fastq, pe, se_sub, device, (share, pe_share),
         straddling_filler(index))
     knobs_phase(index, se_sub, pe_sub, device)
+    launches_dp = dp_phase(index, device)
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
@@ -1895,7 +1966,8 @@ def main() -> int:
                 launches_mesh=launches_mesh,
                 launches_mesh_pe=launches_mesh_pe,
                 launches_shifted=launches_shifted,
-                launches_shifted_mesh=launches_shifted_mesh)
+                launches_shifted_mesh=launches_shifted_mesh,
+                launches_dp=launches_dp)
 
     def entry(name, source, nums, **extra):
         return {"name": name, "route": "cuda", "source": source,

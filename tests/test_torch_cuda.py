@@ -197,6 +197,77 @@ def test_mesh_on_card_matches_single_device(cuda_device):
 
 
 @pytest.mark.cuda
+def test_verify_stage_on_second_card_keeps_current_device(cuda_device):
+    """A fused-stage launch on cuda:1 from the main thread leaves the
+    thread's current device as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev1 = torch.device("cuda", 1)
+    args, kw = stage_inputs(np.random.default_rng(11), 5003, 3000, 7,
+                            1 << 16, dev1)
+    current = torch.cuda.current_device()
+    got = verify.verify_worklist(*args, **kw)
+    assert torch.cuda.current_device() == current
+    torch.cuda.synchronize(dev1)
+    want = verify.verify_worklist_reference(
+        *args, **kw, windows=verify.verify_windows_reference)
+    for g, w in zip(got, want):
+        assert g.device == dev1 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dp_mesh_on_cards_equals_serial_chunks(cuda_device):
+    """A dp=2 x tp=1 mesh over two cards (virtual on one card when there is
+    one), each row on its own thread: its SE step equals the single-device
+    step over the two chunks of half the reads, element for element, with
+    the same fused-stage launches, and the caller's current device stays."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.ops import se_fold
+    from walt_tpu_torch.parallel import make_mesh, sharded
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_reads
+
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh([torch.device("cuda", i % n_cards) for i in range(2)],
+                     tp=1)
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [build_table(genome, c, pattern, verbose=False)
+              for c in ("CT00", "CT01")]
+    codes, lens, _ = sample_reads(genome, 8192, 100, seed=29)
+    kw = dict(pattern_name="3", ag_wildcard=False, verify_slab=8,
+              cand_slab=32, wl_factor=1.5)
+
+    def step(backend, chunk):
+        tabs, bits, ubits = [], [], []
+        for g, ht in tables:
+            dt, dev = backend._device_table(g, ht, pattern, 1)
+            tabs.append(dev)
+            bits.append(dt.max_bucket_bits)
+            ubits.append(dt.uniq_bits)
+        fn = (se_fold.map_single_end_device if backend.mesh is None else
+              lambda *a, **k: sharded.map_single_end_sharded(
+                  *a, mesh=backend.mesh, **k))
+        before = verify.stage_launches
+        out = [fn(pc, pl, 5000, 6, tuple(tabs), search_bits=tuple(bits),
+                  uniq_bits=tuple(ubits), **kw)
+               for _, _, pc, pl in backend._chunks(codes, lens, pattern,
+                                                   chunk)]
+        for d in mesh.distinct():
+            torch.cuda.synchronize(d)
+        return torch.cat([o.cpu() for o in out]), verify.stage_launches - \
+            before
+
+    current = torch.cuda.current_device()
+    got, got_launches = step(TorchBackend(mesh=mesh), 8192)
+    assert torch.cuda.current_device() == current
+    want, want_launches = step(TorchBackend(device=cuda_device), 4096)
+    assert got_launches == want_launches > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_dryrun_multichip_on_card(cuda_device):
     from walt_tpu_torch import entry
 

@@ -4,8 +4,10 @@
   ``tools/profile_torch_smoke.py``, ``tools/stage_kernel_diag.py``,
   ``tools/hg19_scale_torch.py``, ``tools/uniq_build_time.py``,
   ``tools/cli_turns.py``, ``tools/device_profile_torch.py``,
-  ``tools/se_tune_torch.py`` and ``tools/pe_tune_torch.py`` finds no
-  import of ``jax`` or ``walt_tpu`` (at any depth: inside functions too);
+  ``tools/se_tune_torch.py``, ``tools/pe_tune_torch.py``,
+  ``tools/dp_scaling_torch.py`` and ``tools/thread_dispatch_torch.py``
+  finds no import of ``jax`` or ``walt_tpu`` (at any depth: inside
+  functions too);
 - a subprocess imports every module of the port, runs its CLI on the CPU
   end to end (SE, then PE) and finds neither ``jax`` nor any ``walt_tpu``
   module in ``sys.modules``.
@@ -31,7 +33,9 @@ def _sources():
            os.path.join(ROOT, "tools", "cli_turns.py"),
            os.path.join(ROOT, "tools", "device_profile_torch.py"),
            os.path.join(ROOT, "tools", "se_tune_torch.py"),
-           os.path.join(ROOT, "tools", "pe_tune_torch.py")]
+           os.path.join(ROOT, "tools", "pe_tune_torch.py"),
+           os.path.join(ROOT, "tools", "dp_scaling_torch.py"),
+           os.path.join(ROOT, "tools", "thread_dispatch_torch.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "walt_tpu_torch")):
         out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return out

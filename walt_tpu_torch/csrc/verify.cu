@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.h"
 #include "verify_row.h"
 
 namespace {
@@ -50,20 +51,21 @@ __global__ void verify_kernel(const uint32_t* __restrict__ pseq,
 
 }  // namespace
 
-// Launches the kernel on `stream` (a cudaStream_t) of device `device`.
-// Returns cudaGetLastError() after the launch: 0 when it was accepted.
+// Launches the kernel on `stream` (a cudaStream_t) of device `device`; the
+// calling thread's current device is left as it was.  Returns
+// cudaGetLastError() after the launch: 0 when it was accepted.
 extern "C" int waltx_verify(const void* pseq, int64_t n_pseq, const void* gpos,
                             const void* conv, const void* lane, int64_t M,
                             int W, void* mm, void* win, int device,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   if (M <= 0) return 0;
-  int64_t blocks = (M + kThreads - 1) / kThreads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride covers the rest
-  verify_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)pseq, n_pseq, (const uint32_t*)gpos,
-      (const uint32_t*)conv, (const uint32_t*)lane, M, W, (int32_t*)mm,
-      (uint32_t*)win);
-  return (int)cudaGetLastError();
+  return waltx::on_device(device, [&] {
+    int64_t blocks = (M + kThreads - 1) / kThreads;
+    if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride covers the rest
+    verify_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)pseq, n_pseq, (const uint32_t*)gpos,
+        (const uint32_t*)conv, (const uint32_t*)lane, M, W, (int32_t*)mm,
+        (uint32_t*)win);
+    return cudaGetLastError();
+  });
 }

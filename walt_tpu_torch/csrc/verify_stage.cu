@@ -50,6 +50,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "device_guard.h"
 #include "verify_stage_row.h"
 
 namespace {
@@ -167,13 +168,12 @@ extern "C" int waltx_verify_stage_args_size() {
 }
 
 // Launches the fused verify stage described by *args on `stream` (a
-// cudaStream_t) of device `device`.  The staging fields (conv_smem_bytes,
-// si_smem) are set here.  Returns cudaGetLastError() after the launch: 0
-// when it was accepted.
+// cudaStream_t) of device `device`; the calling thread's current device is
+// left as it was.  The staging fields (conv_smem_bytes, si_smem) are set
+// here.  Returns cudaGetLastError() after the launch: 0 when it was
+// accepted.
 extern "C" int waltx_verify_stage(const waltx::StageArgs* args, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   waltx::StageArgs a = *args;
   if (a.M <= 0) return 0;
   if (a.W < 1 || a.W > waltx::kStageMaxW || a.S < 1 ||
@@ -192,16 +192,18 @@ extern "C" int waltx_verify_stage(const waltx::StageArgs* args, int device,
                       (a.si_smem ? (size_t)a.n_si * 4 : 0) +
                       (size_t)a.S * a.W * 4 + waltx::kStageMaxCwt * 4;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (a.W) {
+  return waltx::on_device(device, [&] {
+    switch (a.W) {
 #define WALTX_CASE(w) \
   case w:             \
-    return (int)launch<w>(a, smem, s);
-    WALTX_CASE(1) WALTX_CASE(2) WALTX_CASE(3) WALTX_CASE(4)
-    WALTX_CASE(5) WALTX_CASE(6) WALTX_CASE(7) WALTX_CASE(8)
-    WALTX_CASE(9) WALTX_CASE(10) WALTX_CASE(11) WALTX_CASE(12)
-    WALTX_CASE(13) WALTX_CASE(14) WALTX_CASE(15) WALTX_CASE(16)
+    return launch<w>(a, smem, s);
+      WALTX_CASE(1) WALTX_CASE(2) WALTX_CASE(3) WALTX_CASE(4)
+      WALTX_CASE(5) WALTX_CASE(6) WALTX_CASE(7) WALTX_CASE(8)
+      WALTX_CASE(9) WALTX_CASE(10) WALTX_CASE(11) WALTX_CASE(12)
+      WALTX_CASE(13) WALTX_CASE(14) WALTX_CASE(15) WALTX_CASE(16)
 #undef WALTX_CASE
-    default:
-      return (int)launch<0>(a, smem, s);
-  }
+      default:
+        return launch<0>(a, smem, s);
+    }
+  });
 }

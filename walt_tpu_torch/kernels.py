@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(CSRC, "verify.cu"),
            os.path.join(CSRC, "verify_stage.cu")]
 HEADERS = [os.path.join(CSRC, "verify_row.h"),
-           os.path.join(CSRC, "verify_stage_row.h")]
+           os.path.join(CSRC, "verify_stage_row.h"),
+           os.path.join(CSRC, "device_guard.h")]
 _ROOT = os.path.dirname(_PKG)
 # a checkout builds beside its sources; an installed copy must not write
 # into site-packages, so it builds in the user's cache

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -44,9 +45,18 @@ from walt_tpu_torch.ops.packing import MASK32, u32
 launches = 0
 #: kernel launches made by :func:`verify_worklist`
 stage_launches = 0
+_count_lock = threading.Lock()
 
 #: limits of the fused stage's parameter block (csrc/verify_stage_row.h)
 STAGE_MAX_SEEDS, STAGE_MAX_SKIPS, STAGE_MAX_CWT, STAGE_MAX_W = 8, 8, 16, 64
+
+
+def count_launch(name: str) -> None:
+    """Add one to the launch counter ``name`` (``"launches"`` or
+    ``"stage_launches"``) under a lock: a mesh's dp rows launch from
+    several threads, and ``+=`` on a module global is no atomic step."""
+    with _count_lock:
+        globals()[name] += 1
 
 
 def verify_windows_reference(pseq, gpos, conv, lane, W: int):
@@ -112,8 +122,7 @@ def verify_windows(pseq, gpos, conv, lane, W: int):
     )
     if err != 0:
         raise RuntimeError(f"verify kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    count_launch("launches")
     return mm, win
 
 
@@ -293,8 +302,7 @@ def verify_worklist(wl_read, wl_seedi, wl_entryidx, wl_valid, conv, lens,
     if err != 0:
         raise RuntimeError(f"verify stage kernel launch failed: CUDA error "
                            f"{err}")
-    global stage_launches
-    stage_launches += 1
+    count_launch("stage_launches")
     return gpos, mm, keep
 
 

@@ -7,16 +7,27 @@ entry).  A bucket lives wholly on one shard, so for a given (read, seed) at
 most one shard produces candidates, and the pipeline's ``tp_route`` mode
 compacts each shard's owned (read, seed) pairs before the search.
 
-walt_tpu runs one ``shard_map`` program over a JAX mesh.  Here a
-:class:`Mesh` is a (dp, tp) grid of torch devices, and the shard steps run
-one after another from the calling thread, each on its own device (their
-launches are asynchronous, so shards on different cards overlap).  A
-device may appear more than once in the grid: a virtual mesh puts several
-shards on one card, as walt_tpu's tests put them on virtual CPU devices.
+walt_tpu runs one ``shard_map`` program over a JAX mesh: one dispatch runs
+every shard on every chip at once.  Here a :class:`Mesh` is a (dp, tp)
+grid of torch devices.  Its dp rows run at once, each on a host thread of
+the mesh's own pool (:meth:`Mesh.run_rows`; one thread per row, made at
+first use; a dp=1 mesh runs its row on the calling thread), with the row's
+first device as the thread's current CUDA device.  Within a row the tp
+shard steps run one after another, each on its own device (their launches
+are asynchronous, so shards on different cards overlap).  The strand pass
+is bound by host dispatch, and the Python half of each launch holds the
+interpreter lock, which torch lets go inside every op: rows on threads
+hand the lock over at each op, so their dispatch does not overlap and pays
+for every hand-over (``tools/dp_scaling_torch.py`` and
+``tools/thread_dispatch_torch.py`` measure it).  A device may appear more
+than once in the grid: a virtual mesh puts several shards on one card, as
+walt_tpu's tests put them on virtual CPU devices, and rows that share a
+card launch onto its one stream, which keeps their work in order.
 walt_tpu's ``all_gather`` over tp is a copy of each shard's outputs to the
 first device of its dp row, then a stack: a peer copy between cards, a
-no-op on a virtual mesh.  Results are concatenated over dp on the mesh's
-first device.
+no-op on a virtual mesh.  The caller joins the rows in row order and
+concatenates their results on the mesh's first device.  Results, fallback
+bits and kernel launches are those of running the rows one after another.
 
 Placed shard tensors are exact-size (``shard_map``'s uniform shapes, and
 walt_tpu's padded ``(T, max_len)`` stacks, have no counterpart in torch);
@@ -28,7 +39,9 @@ host layout, bit for bit.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -53,6 +66,34 @@ class Mesh:
             raise ValueError("Mesh: devices must be a non-empty (dp, tp) grid")
         self.devices = rows
         self.shape = {"dp": len(rows), "tp": len(rows[0])}
+        self._pool = None  # dp row threads, made by the first run_rows
+        self._pool_lock = threading.Lock()
+
+    def run_rows(self, row):
+        """``[row(d) for d in range(dp)]``, the rows run at once.
+
+        With dp > 1 each row runs on a thread of the mesh's pool (dp
+        threads), which first makes the row's first device its current
+        CUDA device.  Every row finishes before this returns or raises; a
+        row's exception is raised here with its type (the first failed
+        row's, in row order)."""
+        dp = self.shape["dp"]
+        if dp == 1:
+            return [row(0)]
+        with self._pool_lock:
+            if self._pool is None:
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    dp, thread_name_prefix="mesh-dp")
+        futures = [self._pool.submit(self._on_row_device, row, d)
+                   for d in range(dp)]
+        concurrent.futures.wait(futures)
+        return [f.result() for f in futures]
+
+    def _on_row_device(self, row, d: int):
+        first = self.devices[d][0]
+        if first.type == "cuda":
+            torch.cuda.set_device(first)
+        return row(d)
 
     @staticmethod
     def _device(d) -> torch.device:
@@ -370,15 +411,17 @@ def map_strand_sharded(preads, lens, b: int, max_mm: int, table, *,
               exact_b=exact_b, uniq_bits=uniq_bits, full_mask=full_mask,
               tp_route=mesh.shape["tp"])
     n_seeds = get_pattern(pattern_name).pattern_len
-    rows = []
-    for d, devices in enumerate(mesh.devices):
+
+    def row(d):
+        devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
         outs = [_map_shard(reads[dev], b, max_mm, sh, **kw)
                 for dev, sh in zip(devices, table[d])]
         cs, cp, cm, _, fb = (_gather([o[k] for o in outs], devices[0])
                              for k in range(5))
-        rows.append(merge_gathered(cs, cp, cm, fb.any(0), cand_slab,
-                                   n_seeds))
+        return merge_gathered(cs, cp, cm, fb.any(0), cand_slab, n_seeds)
+
+    rows = mesh.run_rows(row)
     return tuple(_cat_rows([r[k] for r in rows], mesh) for k in range(5))
 
 
@@ -405,8 +448,9 @@ def map_single_end_sharded(preads, lens, b: int, max_mm: int, tables, *,
               verify_slab=verify_slab, cand_slab=cand_slab, seeds=seeds,
               wl_factor=wl_factor, exact_b=exact_b, full_mask=full_mask,
               tp_route=mesh.shape["tp"])
-    rows = []
-    for d, devices in enumerate(mesh.devices):
+
+    def row(d):
+        devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
         dst = devices[0]
         summaries, fallback = [], None
@@ -423,9 +467,10 @@ def map_single_end_sharded(preads, lens, b: int, max_mm: int, tables, *,
             summaries.append(se_fold.combine_summaries(parts))
             fb_any = _gather(fbs, dst).any(0)
             fallback = fb_any if fallback is None else (fallback | fb_any)
-        rows.append(se_fold.pack_se_result(
-            *se_fold.fold_summaries(summaries, max_mm, pattern), fallback))
-    return _cat_rows(rows, mesh)
+        return se_fold.pack_se_result(
+            *se_fold.fold_summaries(summaries, max_mm, pattern), fallback)
+
+    return _cat_rows(mesh.run_rows(row), mesh)
 
 
 def map_mate_sharded(preads, lens, b: int, max_mm: int, tables, *,
@@ -449,8 +494,9 @@ def map_mate_sharded(preads, lens, b: int, max_mm: int, tables, *,
               verify_slab=verify_slab, cand_slab=cand_slab,
               wl_factor=wl_factor, exact_b=exact_b, full_mask=full_mask,
               tp_route=mesh.shape["tp"], emit_wl=True)
-    metas, flats = [], []
-    for d, devices in enumerate(mesh.devices):
+
+    def row(d):
+        devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
         shard_meta, shard_flat = [], []
         for t, dev in enumerate(devices):
@@ -466,6 +512,8 @@ def map_mate_sharded(preads, lens, b: int, max_mm: int, tables, *,
                                              flat_factor, cand_slab)
             shard_meta.append(meta)
             shard_flat.append(flat)
-        metas.append(_gather(shard_meta, devices[0]))
-        flats.append(_gather(shard_flat, devices[0]))
+        return (_gather(shard_meta, devices[0]),
+                _gather(shard_flat, devices[0]))
+
+    metas, flats = zip(*mesh.run_rows(row))
     return _cat_rows(metas, mesh, 1), _cat_rows(flats, mesh, 1)

@@ -106,10 +106,24 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     program's reads/s, its implied (virtual) or real efficiency and its
     launches.
 
-Phases 5, 7, 9 and 10 print the working set, the peak reserved device
-memory less the resident tables' bytes and less what earlier phases still
-hold; the largest sets ``TorchBackend.HBM_RESERVE``, and the script fails
-if one exceeds it.
+17. CUDA graphs (run after phase 14, on the CT00 and CT01 tables phase
+    9's backends built): one 131,072-read chunk through the SE step and
+    one of mate-1 reads through the PE mate step, on one card and on the
+    mesh, as the backend runs them (graph replays of its ``ops/graphs``
+    step cache) and eagerly (one card: with an ``ops/stages`` recorder;
+    the mesh: its rows' parts run one op at a time).  Bit-identical, and
+    k replays count k times the eager step's fused-stage launches.  Prints
+    one ``graphs`` line: per step the wall and device busy ms of the graph
+    and of the eager step, their idle shares, and the cached graphs and
+    their pools' bytes per device.
+
+The backends run every device step as a CUDA graph replay; the kernel's
+launch counters count each replay's captured launches, so a count is the
+number of times the kernel ran.  Phases 5, 7, 9 and 10 print the working
+set, the peak reserved device memory less the resident tables' bytes and
+less what earlier phases still hold (the graphs' pools included); the
+largest sets ``TorchBackend.HBM_RESERVE``, and the script fails if one
+exceeds it.
 
 Each phase that drives the main path sets every kernel's launch count to
 0 just before and reads the counts just after; it fails unless the fused
@@ -821,7 +835,8 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
                   f"reads {t2 - t1:.2f} s; peak device memory "
                   f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
                   f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
-                  f"GiB of tables and {held / 2**30:.3f} GiB held before)")
+                  f"GiB of tables and {held / 2**30:.3f} GiB held before); "
+                  f"graphs {backend.graphs.stats()}")
     backend.free_tables()
     return share, ws
 
@@ -1021,7 +1036,8 @@ def pe_parity(index: str, pe, device, min_share: float):
                      f"{t_exact:.2f} s; peak device memory "
                      f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
                      f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
-                     f"GiB of tables and {held / 2**30:.3f} GiB held before)")
+                     f"GiB of tables and {held / 2**30:.3f} GiB held before); "
+                     f"graphs {backend.graphs.stats()}")
     backend.free_tables()
     return share, ws
 
@@ -1183,7 +1199,7 @@ def tier_breakdown(backend, call) -> str:
     from walt_tpu_torch.ops import verify
 
     passes = []
-    real_chunks, real_fetch = backend._chunks, backend._fetch
+    real_chunks, real_wait = backend._chunks, backend._wait
     real_step = torch_backend.sharded.map_single_end_sharded
 
     def chunks(codes, lens, pattern, chunk=None):
@@ -1197,19 +1213,19 @@ def tier_breakdown(backend, call) -> str:
         passes[-1]["slab"] = kw["verify_slab"]
         return real_step(*a, **kw)
 
-    def fetch(tensors):
-        out = real_fetch(tensors)
+    def wait(host):
+        out = real_wait(host)
         p = passes[-1]
         p["secs"] = time.perf_counter() - p["t0"]
         p["launches"] = verify.stage_launches - p["launches"]
         return out
 
-    backend._chunks, backend._fetch = chunks, fetch
+    backend._chunks, backend._wait = chunks, wait
     torch_backend.sharded.map_single_end_sharded = step
     try:
         call()
     finally:
-        del backend._chunks, backend._fetch
+        del backend._chunks, backend._wait
         torch_backend.sharded.map_single_end_sharded = real_step
     return "; ".join(
         f"{p['reads']} reads in {p['chunks']} chunks, slab {p['slab']}, "
@@ -1281,9 +1297,10 @@ def mesh_se_parity(index, fastq, mesh, device, n_reads: int,
                        f"{fmt_secs(secs)}; peak device memory {peak:.2f} GiB "
                        f"(mesh tables and working set); working set on "
                        f"{device} {ws:.3f} GiB (both backends' tables and "
-                       f"{held / 2**30:.3f} GiB held before excluded); one "
-                       f"more steady mesh call by pass: "
-                       f"{passes}")
+                       f"{held / 2**30:.3f} GiB held before excluded); "
+                       f"graphs: mesh {mesh_b.graphs.stats()}, single "
+                       f"{single.graphs.stats()}; one more steady mesh call "
+                       f"by pass: {passes}")
     return mesh_b, single, ws
 
 
@@ -1341,7 +1358,9 @@ def mesh_pe_parity(index, pe, mesh_b, single, n_pairs: int,
                           f"{t_exact:.2f} s; peak device memory "
                           f"{peak:.2f} GiB; working set {ws:.3f} GiB (both "
                           f"backends' tables and {held / 2**30:.3f} GiB held "
-                          f"before excluded)")
+                          f"before excluded); graphs: mesh "
+                          f"{mesh_b.graphs.stats()}, single "
+                          f"{single.graphs.stats()}")
     single.free_tables()
     return ws
 
@@ -1829,6 +1848,9 @@ def stage_phase(single, index, fastq, pe, device) -> None:
                   f"{time.perf_counter() - t0:.1f} s: " + "; ".join(lines))
 
 
+#: calls per wall time and profiling window of phase 17
+GRAPH_REPS = 5
+
 #: mesh sizes of phase 16 (dp, at tp = 1) and its reps per measurement;
 #: it leaves out the tool's end-to-end calls (the mesh's slab tiers, 70-100
 #: s of the phase on one H100; phases 9 and 11 map the mesh end to end)
@@ -1883,6 +1905,168 @@ def dp_phase(index: str, device) -> dict:
     return c
 
 
+class EagerSteps:
+    """``ops/graphs.StepCache``'s interface with every step run eagerly:
+    phase 17's reference for a mesh's graph steps (the sharded steps take
+    it as ``graphs``)."""
+
+    @staticmethod
+    def run(fn, inputs, *args, lane: int = 0, **kw):
+        return fn(*inputs, *args, **kw)
+
+
+def wall_ms(fn, devices, reps: int = GRAPH_REPS):
+    """(best, median) wall milliseconds of ``fn()`` to a synchronize of
+    every device, ``reps`` calls after a warm one."""
+    import statistics
+
+    import torch
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return min(secs) * 1e3, statistics.median(secs) * 1e3
+
+
+def busy_ms(fn, reps: int = GRAPH_REPS):
+    """(device busy ms, device events) per call of ``fn``: the union of the
+    device intervals of ``reps`` calls in one torch.profiler window after a
+    warm-up call (``ops/stages.profiled``), over ``reps``.  A window that
+    holds no device event is profiled again, at most PROFILE_ATTEMPTS
+    times."""
+    from walt_tpu_torch.ops import stages as st
+
+    trace = os.path.join(ROOT, "build", "graph_trace.json")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        _, evs = st.profiled(lambda: [fn() for _ in range(reps)], fn, trace)
+        os.unlink(trace)
+        dev = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in evs if e.get("cat") in st.DEVICE_CATS]
+        if dev:
+            return st.union_us(dev) / 1e3 / reps, len(dev) / reps
+        say("graphs", f"profiling window {attempt} held no device event; "
+                      f"profiling again")
+    raise AssertionError(f"no profiling window in {PROFILE_ATTEMPTS} held a "
+                         f"device event")
+
+
+def graph_phase(single, mesh_b, index, fastq, pe) -> None:
+    """Phase 17 (after phase 14, on the CT00 and CT01 tables phase 9's
+    backends built): one 131,072-read chunk of phase 4's reads through the
+    SE step (tier-1 shape, every seed) and one of its mate-1 reads through
+    the PE mate step, on one card and on the mesh, as the backend runs them
+    (CUDA graph replays, ``se_step`` / ``mate_step``) and eagerly (one card:
+    the step with an ``ops/stages`` recorder; the mesh: its rows' parts run
+    by :class:`EagerSteps`).  Each graph step must equal its eager step bit
+    for bit, and k replays must count k times the eager step's fused-stage
+    launches.  Prints one line: per step the wall ms and device busy ms of
+    the graph and of the eager step (``stages=None``), their idle shares,
+    and the graphs and pool bytes per device of each backend."""
+    import torch
+
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index import io_walt
+    from walt_tpu_torch.ops import pe_map, pipeline, se_fold
+    from walt_tpu_torch.ops import stages as st
+    from walt_tpu_torch.parallel import sharded
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(index)
+    tables = [io_walt.read_table_cached(index + s, gm)
+              for s in ("_CT00", "_CT01")]
+    reads = {"SE": load_reads(fastq, MAIN_B), "PE": load_reads(pe[0], MAIN_B)}
+    t0 = time.perf_counter()
+    lines = []
+    for where, backend in (("one card", single), ("mesh", mesh_b)):
+        mesh = backend.mesh
+        n_cached = len(backend._tables)
+        built = [backend._device_table(g, ht, pattern, 1) for g, ht in tables]
+        if len(backend._tables) != n_cached:
+            raise AssertionError(f"phase 17 built a table phase 9 had not "
+                                 f"({where})")
+        devs = tuple(d for _, d in built)
+        devices = mesh.distinct() if mesh is not None else [backend.device]
+        for mode in ("SE", "PE"):
+            codes, lens = reads[mode]
+            _, _, pc, pl = next(backend._chunks(codes, lens, pattern, MAIN_B))
+            kw = dict(pattern_name="3", ag_wildcard=False,
+                      search_bits=tuple(dt.max_bucket_bits for dt, _ in built),
+                      uniq_bits=tuple(dt.uniq_bits for dt, _ in built),
+                      exact_b=False, cand_slab=backend.cand_slab,
+                      full_mask=TorchBackend._full_mask(lens, pattern))
+            if mode == "SE":
+                kw.update(verify_slab=pipeline.VERIFY_SLAB_T1, wl_factor=1.5)
+                step, body = backend.se_step, se_fold.map_single_end_device
+                mesh_body = sharded.map_single_end_sharded
+            else:
+                kw.update(verify_slab=pe_map.VERIFY_SLAB,
+                          wl_factor=pe_map.WL_FACTOR,
+                          flat_factor=pe_map.FLAT_FACTOR)
+                step, body = backend.mate_step, pe_map.map_mate_device
+                mesh_body = sharded.map_mate_sharded
+
+            def graph(step=step, pc=pc, pl=pl, kw=kw):
+                out = step(pc, pl, 5000, 6, devs, **kw)
+                return tuple(t.clone() for t in
+                             (out if isinstance(out, tuple) else (out,)))
+
+            def eager(stages=None, body=body, mesh_body=mesh_body, pc=pc,
+                      pl=pl, kw=kw):
+                out = (body(pc, pl, 5000, 6, devs, stages=stages, **kw)
+                       if mesh is None else
+                       mesh_body(pc, pl, 5000, 6, devs, mesh=mesh,
+                                 graphs=EagerSteps(), **kw))
+                return out if isinstance(out, tuple) else (out,)
+
+            zero_counts()
+            want = eager(st.StageLog() if mesh is None else None)
+            per_call = counts()
+            if per_call["verify_worklist"] <= 0 or per_call["verify_windows"]:
+                raise AssertionError(f"{where} {mode}: eager launches "
+                                     f"{per_call}")
+            got = graph()  # captures the step when phase 9 had not
+            reps = 3
+            zero_counts()
+            for _ in range(reps):
+                got = graph()
+            launches = counts()
+            if launches != {k: reps * v for k, v in per_call.items()}:
+                raise AssertionError(f"{where} {mode}: {reps} replays "
+                                     f"counted {launches}, the eager step "
+                                     f"{per_call} per call")
+            if len(got) != len(want) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"{where} {mode}: the graph step differs "
+                                     f"from the eager step")
+            g_wall, g_med = wall_ms(graph, devices)
+            e_wall, e_med = wall_ms(eager, devices)
+            g_busy, g_events = busy_ms(graph)
+            e_busy, e_events = busy_ms(eager)
+            lines.append(
+                f"{where} {mode}: wall graph {g_wall:.3f} ms (median "
+                f"{g_med:.3f}), eager {e_wall:.3f} ms ({e_med:.3f}); busy "
+                f"{g_busy:.3f} / {e_busy:.3f} ms in {g_events:.0f} / "
+                f"{e_events:.0f} device events; idle share "
+                f"{1 - g_busy / g_wall:.3f} / {1 - e_busy / e_wall:.3f}; "
+                f"{per_call['verify_worklist']} fused launches per call")
+        lines.append(f"{where} graphs {backend.graphs.stats()}")
+    say("graphs", f"phase 17, one {MAIN_B}-read chunk per step, each graph "
+                  f"step bit-identical to its eager step with the same "
+                  f"launches per replay, in {time.perf_counter() - t0:.1f} "
+                  f"s: " + "; ".join(lines))
+
+
 def mesh_dryrun() -> None:
     """Phase 12."""
     from walt_tpu_torch import entry
@@ -1932,6 +2116,7 @@ def main() -> int:
     mesh_b, single, ws_mesh = mesh_se_parity(index, se_sub, mesh, device,
                                              N_MESH_READS, MIN_DEVICE_SHARE)
     stage_phase(single, index, fastq, pe, device)
+    graph_phase(single, mesh_b, index, fastq, pe)
     ws_mesh_pe = mesh_pe_parity(index, pe_sub, mesh_b, single, N_MESH_PAIRS,
                                 MIN_MESH_PE_SHARE)
     launches_mesh, launches_mesh_pe = mesh_end_to_end(

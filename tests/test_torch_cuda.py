@@ -273,3 +273,131 @@ def test_dryrun_multichip_on_card(cuda_device):
 
     out = entry.dryrun_multichip(4)
     assert out["unique"] > 0 and out["unique_pairs"] > 0
+
+
+def _graph_setup(device, n_reads=4096):
+    """A backend on ``device`` with the CT tables of a small genome placed,
+    two chunks of reads on the card, and the SE and PE step arguments."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.ops import pe_map
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_reads
+
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [build_table(genome, c, pattern, verbose=False)
+              for c in ("CT00", "CT01")]
+    backend = TorchBackend(device=device)
+    built = [backend._device_table(g, ht, pattern, 1) for g, ht in tables]
+    codes, lens, _ = sample_reads(genome, 2 * n_reads, 100, seed=31)
+    chunks = [(pc, pl) for _, _, pc, pl in
+              backend._chunks(codes, lens, pattern, n_reads)]
+    common = dict(pattern_name="3", ag_wildcard=False,
+                  search_bits=tuple(dt.max_bucket_bits for dt, _ in built),
+                  uniq_bits=tuple(dt.uniq_bits for dt, _ in built),
+                  cand_slab=backend.cand_slab, full_mask=True)
+    se_kw = dict(common, verify_slab=8, wl_factor=1.5)
+    pe_kw = dict(common, verify_slab=pe_map.VERIFY_SLAB,
+                 wl_factor=pe_map.WL_FACTOR, flat_factor=pe_map.FLAT_FACTOR)
+    return backend, tuple(d for _, d in built), chunks, se_kw, pe_kw
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["se", "pe"])
+def test_graph_replay_equals_eager_step(cuda_device, mode):
+    """The cached step (a CUDA graph replay) equals the eager step bit for
+    bit on two chunks, and each replay counts the graph's captured
+    fused-stage launches, as many as the eager step makes."""
+    from walt_tpu_torch.ops import pe_map, se_fold
+    from walt_tpu_torch.ops import stages as st
+
+    backend, devs, chunks, se_kw, pe_kw = _graph_setup(cuda_device)
+    step, body, kw = ((backend.se_step, se_fold.map_single_end_device, se_kw)
+                      if mode == "se" else
+                      (backend.mate_step, pe_map.map_mate_device, pe_kw))
+    for pc, pl in chunks:
+        before = verify.stage_launches
+        want = _outs(body(pc, pl, 5000, 6, devs, stages=st.StageLog(), **kw))
+        per_call = verify.stage_launches - before
+        got = tuple(t.clone() for t in _outs(step(pc, pl, 5000, 6, devs,
+                                                  **kw)))
+        torch.cuda.synchronize(cuda_device)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    (entry,) = backend.graphs._entries.values()
+    assert entry.launches == {"stage_launches": per_call} and per_call == 2
+    k, before, k1 = 5, verify.stage_launches, verify.launches
+    for _ in range(k):
+        step(*chunks[0], 5000, 6, devs, **kw)
+    assert verify.stage_launches - before == k * per_call
+    assert verify.launches == k1  # K1 stays off the path
+    stats = backend.graphs.stats()[str(cuda_device)]
+    assert stats["graphs"] == 1 and stats["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_graph_replay_on_second_card_keeps_current_device(cuda_device):
+    """A step captured and replayed on cuda:1 from the main thread leaves
+    the thread's current device as it was, and equals the eager step."""
+    from walt_tpu_torch.ops import se_fold
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev1 = torch.device("cuda", 1)
+    backend, devs, chunks, se_kw, _ = _graph_setup(dev1)
+    current = torch.cuda.current_device()
+    assert current != 1
+    for pc, pl in chunks:
+        got = backend.se_step(pc, pl, 5000, 6, devs, **se_kw).clone()
+        assert torch.cuda.current_device() == current
+        want = se_fold.map_single_end_device(pc, pl, 5000, 6, devs, **se_kw)
+        torch.cuda.synchronize(dev1)
+        assert got.device == dev1 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_out_of_memory_in_capture_is_a_budget_error(cuda_device,
+                                                    monkeypatch):
+    """A real out-of-memory error raised while a step is being captured
+    (the step asks the caching allocator for 1 TiB under capture) ends the
+    capture, reaches the caller as HbmBudgetError, and the backend's next
+    call captures its steps and maps as a fresh backend does."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.errors import HbmBudgetError
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index.build import build_table
+    from walt_tpu_torch.ops import se_fold
+    from walt_tpu_torch.synth import make_genome_repetitive, sample_reads
+
+    pattern = get_pattern("3")
+    genome = make_genome_repetitive(400_000, n_chroms=2, seed=17)
+    tables = [build_table(genome, c, pattern, verbose=False)
+              for c in ("CT00", "CT01")]
+    codes, lens, _ = sample_reads(genome, 3000, 100, seed=37)
+    real = se_fold.map_single_end_device
+    captured = []
+
+    def greedy(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            captured.append(True)
+            torch.empty(1 << 40, dtype=torch.uint8, device=cuda_device)
+        return real(*a, **k)
+
+    backend = TorchBackend(device=cuda_device, small_chunk=1024)
+    monkeypatch.setattr(se_fold, "map_single_end_device", greedy)
+    with pytest.raises(HbmBudgetError):
+        backend.map_single_end(codes, lens, tables, 5000, 6, pattern)
+    assert captured and not torch.cuda.is_current_stream_capturing()
+    assert len(backend.graphs) == 0
+    monkeypatch.setattr(se_fold, "map_single_end_device", real)
+    got = backend.map_single_end(codes, lens, tables, 5000, 6, pattern)
+    assert len(backend.graphs)
+    want = TorchBackend(device=cuda_device, small_chunk=1024).map_single_end(
+        codes, lens, tables, 5000, 6, pattern)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -5,7 +5,8 @@ which run one after another, so it reported the partition overhead a
 parallel mesh would pay, not a speedup.  This tool measures the port's
 mesh on H100 cards: each dp row of a mesh runs on its own host thread
 (``parallel.sharded.Mesh.run_rows``), as every shard of walt_tpu's one
-``shard_map`` program runs at once.
+``shard_map`` program runs at once, and replays its CUDA graphs
+(``ops/graphs``; the first call of each mesh size captures them).
 
 For each mesh size nd in 1, 2, 4 and 8 it maps ``n`` reads sampled afresh
 from the index's genome (``synth.sample_reads(genome, n, 100, seed=5 +
@@ -218,13 +219,9 @@ class Scaling:
 
     def program(self, backend, codes, lens, chunk: int):
         """The SE tier-1 step of ``backend`` over ``codes`` in chunks of
-        ``chunk`` reads: a function returning each chunk's (chunk, 3)
-        result."""
-        import functools
-
-        from walt_tpu_torch.ops import se_fold
-        from walt_tpu_torch.parallel import sharded
-
+        ``chunk`` reads (``backend.se_step``: graph replays on a card): a
+        function returning each chunk's (chunk, 3) result, copied out of
+        the graph's outputs as the backend copies them."""
         tabs, bits, ubits = [], [], []
         for g, ht in self.tables:
             dt, dev = backend._device_table(g, ht, self.pattern, 1)
@@ -233,14 +230,13 @@ class Scaling:
             ubits.append(dt.uniq_bits)
         chunks = [(pc, pl) for _, _, pc, pl in
                   backend._chunks(codes, lens, self.pattern, chunk)]
-        step = (se_fold.map_single_end_device if backend.mesh is None else
-                functools.partial(sharded.map_single_end_sharded,
-                                  mesh=backend.mesh))
 
         def run():
-            return [step(pc, pl, B, MAX_MM, tuple(tabs),
-                         search_bits=tuple(bits), uniq_bits=tuple(ubits),
-                         **self.step_kw) for pc, pl in chunks]
+            return [backend.se_step(pc, pl, B, MAX_MM, tuple(tabs),
+                                    search_bits=tuple(bits),
+                                    uniq_bits=tuple(ubits),
+                                    **self.step_kw).clone()
+                    for pc, pl in chunks]
 
         return run
 

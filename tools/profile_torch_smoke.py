@@ -11,7 +11,9 @@ read pairs, made once under ``build/smoke_data/``), and prints:
   builds both tables) and three steady calls with the tables resident;
 - one steady call under ``torch.profiler``: wall, device busy time (the
   union of the device events' intervals), the idle share of the wall, and
-  device time by kernel name (the full table goes to ``OUT/``);
+  device time by kernel name (the full table goes to ``OUT/``); and one
+  more with the host's wall split by the backend's pieces (packing,
+  chunk uploads, the graph steps, result copies, waits, the rest);
 - the verify stage of one real strand pass (the inputs of the first
   ``verify_worklist`` call of a steady ``map_single_end``): device events
   and device time per pass of the fused kernel against the chain of torch
@@ -109,6 +111,12 @@ def main(out_dir: str) -> int:
         codes, lens, tables, 5000, 6, pattern), dev,
         os.path.join(out_dir, "profile_kernels.txt"))
     be.reset_adaptive()
+    host_split(be, lambda: be.map_single_end(codes, lens, tables, 5000, 6,
+                                             pattern))
+    be.reset_adaptive()
+    # a cached step runs its body only while it is captured: drop the
+    # backend's graphs, so this call captures (and so runs) its steps again
+    be.graphs.clear()
     stage_events(lambda: be.map_single_end(codes, lens, tables, 5000, 6,
                                            pattern))
     be.free_tables()
@@ -147,6 +155,63 @@ def main(out_dir: str) -> int:
               (500_000, 125_000))
     print("card:", cs.card_line(), flush=True)
     return 0
+
+
+def host_split(be, call) -> None:
+    """Where the host's wall time of one steady ``call()`` of ``be`` goes,
+    by timing the backend's pieces on the host clock: packing the batch
+    (``packing.pack_codes_np``), making and uploading each chunk (the
+    ``_chunks`` generator; a pageable upload waits for the stream), the
+    steps (``se_step``: copy into the graph's inputs and replay), starting
+    the result copies (``_to_host``), the waits (``_wait``: synchronize and
+    numpy), and the rest (phase bookkeeping, unpacking, merges)."""
+    from walt_tpu_torch.ops import packing
+
+    spent = dict(pack=0.0, chunks=0.0, steps=0.0, to_host=0.0, wait=0.0)
+    n_chunks = [0]
+
+    def timed(name, fn):
+        def f(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return f
+
+    def chunks(*a, **k):
+        it = real_chunks(*a, **k)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                spent["chunks"] += time.perf_counter() - t
+                return
+            spent["chunks"] += time.perf_counter() - t
+            n_chunks[0] += 1
+            yield item
+
+    real_pack, real_chunks = packing.pack_codes_np, be._chunks
+    packing.pack_codes_np = timed("pack", real_pack)
+    be._chunks = chunks
+    for name, attr in (("steps", "se_step"), ("to_host", "_to_host"),
+                       ("wait", "_wait")):
+        setattr(be, attr, timed(name, getattr(be, attr)))
+    try:
+        t = time.perf_counter()
+        call()
+        wall = time.perf_counter() - t
+    finally:
+        packing.pack_codes_np = real_pack
+        for attr in ("_chunks", "se_step", "_to_host", "_wait"):
+            del be.__dict__[attr]
+    other = wall - sum(spent.values()) + spent["pack"]
+    spent["chunks"] -= spent["pack"]  # the generator packs the batch
+    print(f"host split of one steady call: wall {wall * 1e3:.1f} ms; "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in spent.items())
+          + f" ({n_chunks[0]} chunks); other {other * 1e3:.1f} ms",
+          flush=True)
 
 
 def stage_events(call) -> None:

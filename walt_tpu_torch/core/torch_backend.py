@@ -19,6 +19,14 @@ bucket range and every chunk over dp, and the sharded steps replace the
 single-device ones; the device slab tiers then run even with the native
 library (walt_tpu's mesh policy).
 
+Each chunk's device step runs as a CUDA graph on the card (``ops/graphs``,
+the counterpart of walt_tpu's ``jax.jit``): the backend's
+:class:`~walt_tpu_torch.ops.graphs.StepCache` records it once per set of
+static arguments and replays it for every chunk, and each result's copy to
+the host starts right after its replay, before the next one overwrites it.
+On a mesh each dp row replays its own graphs.  The cache is dropped with
+the tables its graphs bake in.
+
 Every tensor is created on the backend's explicit ``device``:
 ``process_single_end`` and ``process_paired_end`` call the backend from a
 worker thread, and the current CUDA device is per thread.
@@ -27,7 +35,6 @@ worker thread, and the current CUDA device is per thread.
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 
 import numpy as np
@@ -39,6 +46,7 @@ from walt_tpu_torch.core.errors import HbmBudgetError
 from walt_tpu_torch.genome import Genome
 from walt_tpu_torch.index.build import HashTable
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
+from walt_tpu_torch.ops.graphs import StepCache
 from walt_tpu_torch.parallel import sharded
 
 
@@ -76,17 +84,21 @@ class TorchBackend:
 
     #: bytes reserved for the mapping working set (read chunks, worklists,
     #: gather windows, table-build temporaries, the caching allocator's
-    #: blocks) on top of the resident tables.  ``chip_smoke.py`` measures
-    #: the working set as the peak reserved device memory less the resident
-    #: tables and what earlier work still holds, on one NVIDIA H100 80GB
-    #: HBM3 at a 700.00 W power limit: 0.948 GiB for SE (1M reads), 0.857
-    #: GiB for PE (500k pairs), 0.818 GiB for SE and 1.022 GiB for PE on a
-    #: dp=2 x tp=2 mesh virtual on one card (250k reads, 125k pairs).  The
-    #: reserve is 2.5 GiB, about 2.4x the largest: longer reads and more
-    #: repeats widen the worklists.  A reserve too small shows as a device
-    #: out-of-memory error, which maps the batch on the host.  The script
-    #: fails when a working set exceeds the reserve.
-    HBM_RESERVE = 2560 << 20
+    #: blocks, and the memory pools of the cached steps' CUDA graphs, which
+    #: stay reserved while the graphs live) on top of the resident tables.
+    #: ``chip_smoke.py`` measures the working set as the peak reserved
+    #: device memory less the resident tables and what earlier work still
+    #: holds, on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit, with
+    #: the steps as graphs: 1.686 GiB for SE (1M reads; its pool 1.11 GiB),
+    #: 2.216 GiB for PE (500k pairs), 3.712 GiB for SE and 3.464 GiB for PE
+    #: on a dp=2 x tp=2 mesh virtual on one card (250k reads, 125k pairs:
+    #: two row pools, 1.84-2.06 GiB, and the single-device backend's beside
+    #: them).  Eager, the four were 0.818-1.022 GiB.  The reserve is 6 GiB,
+    #: about 1.6x the largest: longer reads and more repeats widen the
+    #: worklists, and each dp row on a card holds a pool.  A reserve too
+    #: small shows as a device out-of-memory error, which maps the batch on
+    #: the host.  The script fails when a working set exceeds the reserve.
+    HBM_RESERVE = 6 << 30
 
     def __init__(self, device="cuda", chunk: int = 131072,
                  small_chunk: int = 2048,
@@ -149,6 +161,8 @@ class TorchBackend:
         #: "u32 word0" or "3-word"), by table name (:data:`TABLE_NAMES`),
         #: for reports
         self.rungs = {}
+        #: the device steps' CUDA graphs (``ops/graphs``), on a mesh too
+        self.graphs = StepCache()
         self.reset_adaptive()
 
     def reset_adaptive(self):
@@ -201,7 +215,9 @@ class TorchBackend:
             key16_not_wide = (wide_kw and not got[4] and self.mesh is None
                               and kw_arr.dtype == torch.int16)
             if stored < n_key_words or key16_not_wide:
-                # rebuild with deeper or wider key words
+                # rebuild with deeper or wider key words; no graph may
+                # outlive the tensors it bakes in
+                self._drop_graphs(got[1])
                 del self._tables[key]
         if key not in self._tables and self.mesh is not None:
             self._tables[key] = self._build_sharded_table(
@@ -225,11 +241,21 @@ class TorchBackend:
         return self._tables[key][:2]
 
     def free_tables(self):
-        """Drop every cached device table (and its memory) explicitly."""
+        """Drop every cached device table (and its memory) explicitly, and
+        the cached steps, whose graphs bake in the tables' pointers."""
+        self.graphs.clear()
         self._tables.clear()
         self._failed_tables.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    def _drop_graphs(self, placed) -> None:
+        """Forget the cached steps that bake in ``placed``'s tensors (one
+        table's dict, or its shard grid on a mesh)."""
+        dicts = ([sh for row in placed for sh in row]
+                 if self.mesh is not None else [placed])
+        self.graphs.drop([v for d in dicts for v in d.values()
+                          if torch.is_tensor(v)])
 
     def _build_sharded_table(self, genome: Genome, table: HashTable,
                              pattern: SeedPattern, n_key_words: int,
@@ -447,8 +473,11 @@ class TorchBackend:
 
     @staticmethod
     def _to_host(tensors):
-        """Start the device-to-host copies of ``tensors``; do not wait."""
-        return [t.to("cpu", non_blocking=True) for t in tensors]
+        """Start the device-to-host copies of ``tensors`` (pinned host
+        memory on a card); do not wait.  Always copies: a step's outputs
+        are its graph's, which the next replay overwrites (on the CPU too,
+        where the step cache's stand-in aliases them the same way)."""
+        return [t.to("cpu", non_blocking=True, copy=True) for t in tensors]
 
     def _wait(self, host):
         """One synchronize of every device in use, then the copies of
@@ -461,10 +490,44 @@ class TorchBackend:
                 torch.cuda.synchronize(d)
         return [h.numpy() for h in host]
 
-    def _fetch(self, tensors):
-        """Copy device results to host numpy: start every copy, then one
-        synchronize."""
-        return self._wait(self._to_host(tensors))
+    # ---- device steps: graph replays on the card (ops/graphs) ----------
+    def se_step(self, preads, lens, b: int, max_mm: int, tables, **kw):
+        """One chunk's SE step: ``se_fold.map_single_end_device`` (keyword
+        arguments as there), or ``sharded.map_single_end_sharded`` on a
+        mesh, through :attr:`graphs`.  On one device the result is the
+        graph's own tensor: copy it out before the next step."""
+        if self.mesh is not None:
+            return sharded.map_single_end_sharded(
+                preads, lens, b, max_mm, tables, mesh=self.mesh,
+                graphs=self.graphs, **kw)
+        return self.graphs.run(se_fold.map_single_end_device, (preads, lens),
+                               b, max_mm, tables, **kw)
+
+    def mate_step(self, preads, lens, b: int, max_mm: int, tables, **kw):
+        """One chunk's PE mate step: ``pe_map.map_mate_device``, or
+        ``sharded.map_mate_sharded`` on a mesh (as :meth:`se_step`)."""
+        if self.mesh is not None:
+            return sharded.map_mate_sharded(
+                preads, lens, b, max_mm, tables, mesh=self.mesh,
+                graphs=self.graphs, **kw)
+        return self.graphs.run(pe_map.map_mate_device, (preads, lens), b,
+                               max_mm, tables, **kw)
+
+    def strand_step(self, preads, lens, b: int, max_mm: int, table, **kw):
+        """One chunk's strand pass against one placed table:
+        ``pipeline.map_strand_core``, or ``sharded.map_strand_sharded`` on
+        a mesh (as :meth:`se_step`)."""
+        if self.mesh is not None:
+            return sharded.map_strand_sharded(
+                preads, lens, b, max_mm, table, mesh=self.mesh,
+                graphs=self.graphs, **kw)
+        return self.graphs.run(
+            pipeline.map_strand_core, (preads, lens), b, max_mm,
+            table["pseq"], table["counter"], table["index"],
+            table["key_words"], table["start_index"],
+            table["bucket_flagged"], uniq_words=table["uniq_words"],
+            uniq_off=table["uniq_off"], uniq_counter=table["uniq_counter"],
+            **kw)
 
     # ---- single-end ------------------------------------------------------
     def map_single_end(self, codes: np.ndarray, lens: np.ndarray, tables,
@@ -498,11 +561,8 @@ class TorchBackend:
                 wl_factor=pipeline.WL_FACTOR):
             m = codes_.shape[0]
             spans, results = [], []
-            step = (se_fold.map_single_end_device if self.mesh is None else
-                    functools.partial(sharded.map_single_end_sharded,
-                                      mesh=self.mesh))
             for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
-                results.append(step(
+                results.extend(self._to_host([self.se_step(
                     pc, pl, b, max_mismatches, tuple(devs),
                     pattern_name=pattern.name, ag_wildcard=ag_wildcard,
                     search_bits=tuple(bits), verify_slab=slab,
@@ -510,11 +570,11 @@ class TorchBackend:
                     wl_factor=wl_factor, exact_b=b < slab,
                     uniq_bits=tuple(ubits),
                     full_mask=self._full_mask(lens_[a:z], pattern),
-                ))
+                )]))
                 spans.append((a, z))
             out = [np.empty(m, t) for t in
                    (np.uint32, np.int32, bool, np.int32, bool)]
-            for (a, z), r in zip(spans, self._fetch(results)):
+            for (a, z), r in zip(spans, self._wait(results)):
                 for o, x in zip(out, se_fold.unpack_se_result(r[: z - a])):
                     o[a:z] = x
             return out
@@ -599,11 +659,8 @@ class TorchBackend:
                 ubits.append(dt.uniq_bits)
             slab = self.pe_verify_slab or self.verify_slab_t1
             spans, results = [], []
-            step = (pe_map.map_mate_device if self.mesh is None else
-                    functools.partial(sharded.map_mate_sharded,
-                                      mesh=self.mesh))
             for a, z, pc, pl in self._chunks(codes, lens, pattern):
-                results.extend(step(
+                results.extend(self._to_host(self.mate_step(
                     pc, pl, b, max_mismatches, tuple(devs),
                     pattern_name=pattern.name, ag_wildcard=ag_wildcard,
                     search_bits=tuple(bits), verify_slab=slab,
@@ -612,9 +669,9 @@ class TorchBackend:
                     flat_factor=self.pe_flat_factor or pe_map.FLAT_FACTOR,
                     uniq_bits=tuple(ubits),
                     full_mask=self._full_mask(lens[a:z], pattern),
-                ))
+                )))
                 spans.append((a, z))
-            return codes.shape[0], spans, self._to_host(results)
+            return codes.shape[0], spans, results
 
     def map_mate_slabs_finish(self, handle):
         """Wait for a :meth:`map_mate_slabs_begin` handle (one synchronize)
@@ -767,17 +824,8 @@ class TorchBackend:
                           cand_slab=C, wl_factor=wl_factor, exact_b=b < slab,
                           uniq_bits=dt.uniq_bits,
                           full_mask=self._full_mask(lens_[a:z], pattern))
-                if self.mesh is not None:
-                    r = sharded.map_strand_sharded(
-                        pc, pl, b, max_mismatches, dev, mesh=self.mesh, **kw)
-                else:
-                    r = pipeline.map_strand_core(
-                        pc, pl, b, max_mismatches, dev["pseq"],
-                        dev["counter"], dev["index"], dev["key_words"],
-                        dev["start_index"], dev["bucket_flagged"],
-                        uniq_words=dev["uniq_words"], uniq_off=dev["uniq_off"],
-                        uniq_counter=dev["uniq_counter"], **kw)
-                results.extend(r)
+                results.extend(self._to_host(
+                    self.strand_step(pc, pl, b, max_mismatches, dev, **kw)))
                 spans.append((a, z))
             out = (
                 np.empty((m, C), dtype=np.int8),
@@ -786,7 +834,7 @@ class TorchBackend:
                 np.empty(m, dtype=np.int32),
                 np.empty(m, dtype=bool),
             )
-            host = self._fetch(results)
+            host = self._wait(results)
             for i, (a, z) in enumerate(spans):
                 for o, x in zip(out, host[5 * i: 5 * i + 5]):
                     o[a:z] = x[: z - a]

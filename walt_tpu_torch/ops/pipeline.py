@@ -45,6 +45,8 @@ launches.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -135,6 +137,36 @@ def window_cared_mask(pattern, seeds, W: int, key16: bool) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _pass_consts(device, pattern_name: str, seeds: tuple, W: int) -> dict:
+    """The strand pass's constant tables on ``device``, made once per
+    (device, pattern, seeds, W) and not inside the pass: a pass captured
+    into a CUDA graph (``ops/graphs``) must not copy from host memory.
+
+    ``word_tab`` / ``shift_tab`` / ``in_range_tab``: where cared position p
+    of seed shift s (``cared[p] + s``) lies in the packed read words (word
+    index, in-word shift, inside the read's W words), (S, n_cared) and
+    broadcastable over the reads; ``pack_shifts[k]``: the left shifts that
+    pack k 2-bit codes into one word; ``shifts``: the seed shifts."""
+    pattern = get_pattern(pattern_name)
+    n_cared = min(pattern.cared_size, pattern.key_weight + 48)
+    pos_tab = np.asarray(
+        [[int(pattern.cared[p]) + s for p in range(n_cared)] for s in seeds]
+    )  # (S, n_cared)
+    in_range = pos_tab < W * 16
+
+    def const(a, dtype=torch.int64):
+        return torch.from_numpy(np.asarray(a)).to(dtype=dtype, device=device)
+
+    return dict(
+        word_tab=const(np.where(in_range, pos_tab // 16, 0)),
+        shift_tab=const(30 - 2 * (pos_tab % 16))[None],
+        in_range_tab=const(in_range, torch.bool)[None],
+        pack_shifts={k: const(np.arange(k - 1, -1, -1) * 2)
+                     for k in range(1, 17)},
+        shifts=const(seeds))
+
+
 def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
                     key_words, start_index, bucket_flagged, *,
                     pattern_name: str, ag_wildcard: bool, search_bits: int,
@@ -186,7 +218,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     mark = marker(stages)
     pattern = get_pattern(pattern_name)
     plen = pattern.pattern_len
-    seeds = tuple(range(plen)) if seeds is None else seeds
+    seeds = tuple(range(plen)) if seeds is None else tuple(seeds)
     S = len(seeds)
     kw = pattern.key_weight
     cared = pattern.cared
@@ -195,9 +227,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     n_entries = index.shape[0]
     C = verify_slab
     dev = preads.device
-
-    def const(a, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    consts = _pass_consts(dev, pattern_name, seeds, W)
 
     # --- read conversion (mapping.cpp:142-164) on packed words ---
     words = u32(preads)
@@ -209,22 +239,14 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
     seed_len = torch.clamp(repeats * pattern.cared_weight,
                            max=pattern.cared_size)
 
-    # cared-base extraction over static position tables:
-    # pos[s][p] = cared[p] + seed shift s -> word index / in-word shift
+    # cared-base extraction over static position tables (_pass_consts)
     n_cared = min(pattern.cared_size, kw + 48)
-    pos_tab = np.asarray(
-        [[int(cared[p]) + s for p in range(n_cared)] for s in seeds]
-    )  # (S, n_cared)
-    in_range_tab = pos_tab < Lmax
-    word_tab = const(np.where(in_range_tab, pos_tab // 16, 0))
-    shift_tab = const(30 - 2 * (pos_tab % 16))[None]
-    cvals = (conv[:, word_tab] >> shift_tab) & 3  # (B, S, n_cared)
-    cvals = torch.where(const(in_range_tab, torch.bool)[None], cvals, 0)
+    cvals = (conv[:, consts["word_tab"]] >> consts["shift_tab"]) & 3
+    cvals = torch.where(consts["in_range_tab"], cvals, 0)  # (B, S, n_cared)
 
     def pack16(vals):
         """(…, k<=16) 2-bit codes -> one 32-bit value, first most significant."""
-        k = vals.shape[-1]
-        return (vals << const(np.arange(k - 1, -1, -1) * 2)).sum(-1)
+        return (vals << consts["pack_shifts"][vals.shape[-1]]).sum(-1)
 
     # --- seed hash keys: (B, S) ---
     key = pack16(cvals[..., :kw])
@@ -369,7 +391,7 @@ def map_strand_core(preads, lens, b: int, max_mm: int, pseq, counter, index,
 
     # --- slab membership: an entry is in the reference's refined range iff
     # its masked key words EQUAL the read's masked prefix words
-    shifts = const(seeds)  # (S,)
+    shifts = consts["shifts"]  # (S,)
     # row space: (B, S) unrouted, (K,) routed; jC broadcasts the slab axis
     jC = torch.arange(C, dtype=torch.int64, device=dev)
     jC = jC[None, :] if route else jC[None, None, :]

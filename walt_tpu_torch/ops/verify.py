@@ -30,6 +30,7 @@ to the plain version: a failed build or launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -46,17 +47,39 @@ launches = 0
 #: kernel launches made by :func:`verify_worklist`
 stage_launches = 0
 _count_lock = threading.Lock()
+#: per thread: the launches counted while :func:`launch_tally` is open
+_tally = threading.local()
 
 #: limits of the fused stage's parameter block (csrc/verify_stage_row.h)
 STAGE_MAX_SEEDS, STAGE_MAX_SKIPS, STAGE_MAX_CWT, STAGE_MAX_W = 8, 8, 16, 64
 
 
-def count_launch(name: str) -> None:
-    """Add one to the launch counter ``name`` (``"launches"`` or
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` to the launch counter ``name`` (``"launches"`` or
     ``"stage_launches"``) under a lock: a mesh's dp rows launch from
-    several threads, and ``+=`` on a module global is no atomic step."""
+    several threads, and ``+=`` on a module global is no atomic step.
+    Inside :func:`launch_tally` the launches go to the calling thread's
+    tally instead."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + n
+        return
     with _count_lock:
-        globals()[name] += 1
+        globals()[name] += n
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Count the calling thread's launches into the dict this yields
+    ({counter name: launches}) and not into the module's counters: a step
+    captured into a CUDA graph (``ops/graphs``) counts its launches once
+    per replay, and its warm-up run and its capture not at all."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
 
 
 def verify_windows_reference(pseq, gpos, conv, lane, W: int):
@@ -137,14 +160,15 @@ def verify_worklist_reference(wl_read, wl_seedi, wl_entryidx, wl_valid, conv,
     launches K1 there on a card; :func:`verify_windows_reference` makes the
     whole stage plain torch)."""
     windows = verify_windows if windows is None else windows
-    dev = conv.device
     W = conv.shape[1]
     Lmax = W * 16
+    shifts_t, cared_off_t, cared_mask_t = _reference_consts(
+        conv.device, tuple(int(x) for x in seeds),
+        tuple(int(x) for x in np.asarray(cared_off).tolist()),
+        None if cared_mask is None else
+        np.ascontiguousarray(cared_mask, dtype=np.int64).tobytes(), W)
 
-    def const(a, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    wl_shift = const(seeds)[wl_seedi]  # (M,)
+    wl_shift = shifts_t[wl_seedi]  # (M,)
     # genome POSITIONS are u32 end to end (4 Gbp format); the u32 wraps of
     # the JAX code are reproduced by masking
     wl_entry = u32(index[wl_entryidx.clamp(0, index.shape[0] - 1)])
@@ -185,12 +209,24 @@ def verify_worklist_reference(wl_read, wl_seedi, wl_entryidx, wl_valid, conv,
         fold2 = (d2 | (d2 >> 1)) & wl_lane
         # cared[j] is periodic-affine: (j // cw) * plen + cared[j % cw]
         slj = torch.clamp(wl_rep * cwt, max=n_cared)  # seed_len per row
-        offv = const(cared_off)[slj % cwt]
+        offv = cared_off_t[slj % cwt]
         cutoff = (slj // cwt) * plen + offv + wl_shift
         cut_mask = packing.len_lane_masks(cutoff, W)  # lanes < cutoff
-        viol = (fold2 & const(cared_mask)[wl_seedi] & cut_mask).any(1)
+        viol = (fold2 & cared_mask_t[wl_seedi] & cut_mask).any(1)
         wl_keep = wl_keep & ~viol
     return wl_gpos, mm, wl_keep
+
+
+@functools.lru_cache(maxsize=64)
+def _reference_consts(device, seeds, cared_off, cared_mask, W: int):
+    """The plain stage's constants as int64 tensors on ``device``, made
+    once per set of constants (hashable arguments; ``cared_mask``: the
+    (S, W) int64 array's bytes or None): ``seeds``, ``cared_off`` and the
+    cared mask (None when the check does not run)."""
+    mask = (None if cared_mask is None else torch.from_numpy(
+        np.frombuffer(cared_mask, np.int64).reshape(-1, W).copy()).to(device))
+    return (torch.tensor(seeds, dtype=torch.int64, device=device),
+            torch.tensor(cared_off, dtype=torch.int64, device=device), mask)
 
 
 class StageArgs(ctypes.Structure):

@@ -12,22 +12,25 @@ every shard on every chip at once.  Here a :class:`Mesh` is a (dp, tp)
 grid of torch devices.  Its dp rows run at once, each on a host thread of
 the mesh's own pool (:meth:`Mesh.run_rows`; one thread per row, made at
 first use; a dp=1 mesh runs its row on the calling thread), with the row's
-first device as the thread's current CUDA device.  Within a row the tp
-shard steps run one after another, each on its own device (their launches
-are asynchronous, so shards on different cards overlap).  The strand pass
-is bound by host dispatch, and the Python half of each launch holds the
-interpreter lock, which torch lets go inside every op: rows on threads
-hand the lock over at each op, so their dispatch does not overlap and pays
-for every hand-over (``tools/dp_scaling_torch.py`` and
-``tools/thread_dispatch_torch.py`` measure it).  A device may appear more
-than once in the grid: a virtual mesh puts several shards on one card, as
-walt_tpu's tests put them on virtual CPU devices, and rows that share a
-card launch onto its one stream, which keeps their work in order.
-walt_tpu's ``all_gather`` over tp is a copy of each shard's outputs to the
-first device of its dp row, then a stack: a peer copy between cards, a
-no-op on a virtual mesh.  The caller joins the rows in row order and
-concatenates their results on the mesh's first device.  Results, fallback
-bits and kernel launches are those of running the rows one after another.
+first device as the thread's current CUDA device.  Each single-device part
+of a row is a CUDA graph of the caller's step cache (``ops/graphs``; the
+row is its lane, so rows never share a graph or a pool): each tp shard's
+strand pass (with its ``segment_summaries`` for SE, both tables and the
+flat compaction for PE), then the row's merge or fold on its first
+device.  A replay gives up the interpreter lock once, where the eager pass
+handed it to the other rows' threads at each of its ~1,000 ops
+(``tools/thread_dispatch_torch.py`` measures the hand-over).  Within a row
+the tp shard steps run one after another, each on its own device (their
+launches are asynchronous, so shards on different cards overlap).  A
+device may appear more than once in the grid: a virtual mesh puts several
+shards on one card, as walt_tpu's tests put them on virtual CPU devices,
+and rows that share a card launch onto its one stream, which keeps their
+work in order.  walt_tpu's ``all_gather`` over tp is a copy of each
+shard's outputs to the first device of its dp row (a copy on one card
+too: the next replay overwrites a graph's outputs), then a stack.  The
+caller joins the rows in row order and concatenates their results on the
+mesh's first device.  Results, fallback bits and kernel launches are those
+of running the rows one after another.
 
 Placed shard tensors are exact-size (``shard_map``'s uniform shapes, and
 walt_tpu's padded ``(T, max_len)`` stacks, have no counterpart in torch);
@@ -49,6 +52,7 @@ import torch
 from walt_tpu_torch.constants import SeedPattern, get_pattern
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
 from walt_tpu_torch.ops.device_index import DeviceTable
+from walt_tpu_torch.ops.graphs import StepCache
 
 
 class Mesh:
@@ -372,6 +376,12 @@ def _gather(tensors, dst):
     return torch.stack([t.to(dst, non_blocking=True) for t in tensors])
 
 
+def _own(t, dst):
+    """A graph output copied to ``dst`` (on its own device too): the lane's
+    next replay may overwrite the output."""
+    return t.to(dst, non_blocking=True, copy=True)
+
+
 def _cat_rows(rows, mesh: Mesh, dim: int = 0):
     """The dp rows' results concatenated on the mesh's first device."""
     dst = mesh.devices[0][0]
@@ -388,6 +398,49 @@ def _map_shard(reads, b, max_mm, sh: dict, **kw):
         uniq_counter=sh.get("uniq_counter"), key_base=sh["key_base"], **kw)
 
 
+# ---- the single-device parts of a row, each one cached graph -------------
+def _merge_row(outs, cand_slab: int, n_seeds: int):
+    """A strand row's merge on its first device: the shards' slabs
+    (``_map_shard`` outputs, already on that device) stacked and merged."""
+    cs, cp, cm, _, fb = (torch.stack([o[k] for o in outs])
+                         for k in range(5))
+    return merge_gathered(cs, cp, cm, fb.any(0), cand_slab, n_seeds)
+
+
+def _shard_summaries(reads, b, max_mm, sh: dict, **kw):
+    """One shard's strand pass and its ``segment_summaries``: (summaries,
+    fallback)."""
+    cs, cp, cm, _, fb = _map_shard(reads, b, max_mm, sh, **kw)
+    return (se_fold.segment_summaries(cs, cp, cm,
+                                      get_pattern(kw["pattern_name"])), fb)
+
+
+def _fold_row(parts, max_mm: int, pattern_name: str):
+    """An SE row's fold on its first device: ``parts[table][shard]`` =
+    (summaries, fallback), joined per table, folded, packed."""
+    summaries = [se_fold.combine_summaries([p[0] for p in shards])
+                 for shards in parts]
+    fallback = torch.stack([p[1] for shards in parts for p in shards]).any(0)
+    return se_fold.pack_se_result(
+        *se_fold.fold_summaries(summaries, max_mm, get_pattern(pattern_name)),
+        fallback)
+
+
+def _mate_shard(reads, b, max_mm, shards, *, flat_factor: int, search_bits,
+                uniq_bits, **kw):
+    """One shard's mate step: both strand tables' passes (``shards``, '+'
+    first) and their flat compaction."""
+    wls, cnts, fallback = [], [], None
+    for sh, bits, ubits in zip(shards, search_bits, uniq_bits):
+        wl, cnt, fb = _map_shard(reads, b, max_mm, sh, search_bits=bits,
+                                 uniq_bits=ubits, emit_wl=True, **kw)
+        wls.append(wl)
+        cnts.append(cnt)
+        fallback = fb if fallback is None else (fallback | fb)
+    return pe_map.flat_from_wl(wls, cnts, fallback, flat_factor,
+                               kw["cand_slab"])
+
+
 def map_strand_sharded(preads, lens, b: int, max_mm: int, table, *,
                        mesh: Mesh, pattern_name: str, ag_wildcard: bool,
                        search_bits: int,
@@ -396,14 +449,17 @@ def map_strand_sharded(preads, lens, b: int, max_mm: int, table, *,
                        seeds: tuple | None = None,
                        wl_factor: float = pipeline.WL_FACTOR,
                        exact_b: bool = False, uniq_bits: int = 0,
-                       full_mask: bool = False):
+                       full_mask: bool = False,
+                       graphs: StepCache | None = None):
     """Sharded ``map_strand_core``: candidate slabs of one table.
 
     preads: (B, W) int32 packed reads, B a multiple of dp; ``table``: the
     grid of :func:`shard_and_place`.  Each shard's slab is gathered to its
     dp row's first device and merged (:func:`merge_gathered`).  Returns
     (cand_seed, cand_pos, cand_mm, cand_cnt, fallback) as the single-device
-    pipeline does, on the mesh's first device.
+    pipeline does, on the mesh's first device.  ``graphs``: the step cache
+    the rows' parts replay from (the backend's); None makes one for this
+    call.
     """
     kw = dict(pattern_name=pattern_name, ag_wildcard=ag_wildcard,
               search_bits=search_bits, verify_slab=verify_slab,
@@ -411,15 +467,15 @@ def map_strand_sharded(preads, lens, b: int, max_mm: int, table, *,
               exact_b=exact_b, uniq_bits=uniq_bits, full_mask=full_mask,
               tp_route=mesh.shape["tp"])
     n_seeds = get_pattern(pattern_name).pattern_len
+    graphs = StepCache() if graphs is None else graphs
 
     def row(d):
         devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
-        outs = [_map_shard(reads[dev], b, max_mm, sh, **kw)
+        outs = [[_own(x, devices[0]) for x in graphs.run(
+                    _map_shard, (reads[dev],), b, max_mm, sh, lane=d, **kw)]
                 for dev, sh in zip(devices, table[d])]
-        cs, cp, cm, _, fb = (_gather([o[k] for o in outs], devices[0])
-                             for k in range(5))
-        return merge_gathered(cs, cp, cm, fb.any(0), cand_slab, n_seeds)
+        return graphs.run(_merge_row, (outs,), cand_slab, n_seeds, lane=d)
 
     rows = mesh.run_rows(row)
     return tuple(_cat_rows([r[k] for r in rows], mesh) for k in range(5))
@@ -433,7 +489,8 @@ def map_single_end_sharded(preads, lens, b: int, max_mm: int, tables, *,
                            seeds: tuple | None = None,
                            wl_factor: float = pipeline.WL_FACTOR,
                            exact_b: bool = False, uniq_bits: tuple = (0, 0),
-                           full_mask: bool = False):
+                           full_mask: bool = False,
+                           graphs: StepCache | None = None):
     """Sharded ``se_fold.map_single_end_device``.
 
     ``tables``: two grids of :func:`shard_and_place` ('+' strand first).
@@ -441,34 +498,30 @@ def map_single_end_sharded(preads, lens, b: int, max_mm: int, tables, *,
     one shard, so each shard's ``segment_summaries`` are gathered to the dp
     row's first device and joined by ``combine_summaries``, and the
     BestMatch fold runs there.  Returns the (B, 3) packed result of
-    ``map_single_end_device`` on the mesh's first device.
+    ``map_single_end_device`` on the mesh's first device.  ``graphs``: as
+    for :func:`map_strand_sharded`.
     """
-    pattern = get_pattern(pattern_name)
     kw = dict(pattern_name=pattern_name, ag_wildcard=ag_wildcard,
               verify_slab=verify_slab, cand_slab=cand_slab, seeds=seeds,
               wl_factor=wl_factor, exact_b=exact_b, full_mask=full_mask,
               tp_route=mesh.shape["tp"])
+    graphs = StepCache() if graphs is None else graphs
 
     def row(d):
         devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
         dst = devices[0]
-        summaries, fallback = [], None
+        parts = []
         for table, bits, ubits in zip(tables, search_bits, uniq_bits):
-            parts, fbs = [], []
+            shards = []
             for dev, sh in zip(devices, table[d]):
-                cs, cp, cm, _, fb = _map_shard(reads[dev], b, max_mm, sh,
-                                               search_bits=bits,
-                                               uniq_bits=ubits, **kw)
-                summ = se_fold.segment_summaries(cs, cp, cm, pattern)
-                parts.append({k: v.to(dst, non_blocking=True)
-                              for k, v in summ.items()})
-                fbs.append(fb)
-            summaries.append(se_fold.combine_summaries(parts))
-            fb_any = _gather(fbs, dst).any(0)
-            fallback = fb_any if fallback is None else (fallback | fb_any)
-        return se_fold.pack_se_result(
-            *se_fold.fold_summaries(summaries, max_mm, pattern), fallback)
+                summ, fb = graphs.run(_shard_summaries, (reads[dev],), b,
+                                      max_mm, sh, lane=d, search_bits=bits,
+                                      uniq_bits=ubits, **kw)
+                shards.append(({k: _own(v, dst) for k, v in summ.items()},
+                               _own(fb, dst)))
+            parts.append(shards)
+        return graphs.run(_fold_row, (parts,), max_mm, pattern_name, lane=d)
 
     return _cat_rows(mesh.run_rows(row), mesh)
 
@@ -478,7 +531,8 @@ def map_mate_sharded(preads, lens, b: int, max_mm: int, tables, *,
                      search_bits: tuple, verify_slab: int, cand_slab: int,
                      wl_factor: float, flat_factor: int,
                      exact_b: bool = False, uniq_bits: tuple = (0, 0),
-                     full_mask: bool = False):
+                     full_mask: bool = False,
+                     graphs: StepCache | None = None):
     """Sharded ``pe_map.map_mate_device``.
 
     Each shard flat-compacts its own two strand worklists
@@ -488,32 +542,26 @@ def map_mate_sharded(preads, lens, b: int, max_mm: int, tables, *,
     across shards) is the backend's host decode.  Returns (meta (T, B),
     flat (T, dp*M_l, 2)) on the mesh's first device, row t being shard t's
     dp-segmented stream with M_l = flat_factor * B/dp rows per segment --
-    walt_tpu's layout.
+    walt_tpu's layout.  ``graphs``: as for :func:`map_strand_sharded`.
     """
     kw = dict(pattern_name=pattern_name, ag_wildcard=ag_wildcard,
               verify_slab=verify_slab, cand_slab=cand_slab,
               wl_factor=wl_factor, exact_b=exact_b, full_mask=full_mask,
-              tp_route=mesh.shape["tp"], emit_wl=True)
+              tp_route=mesh.shape["tp"], flat_factor=flat_factor,
+              search_bits=tuple(search_bits), uniq_bits=tuple(uniq_bits))
+    graphs = StepCache() if graphs is None else graphs
 
     def row(d):
         devices = mesh.devices[d]
         reads = _row_reads(preads, lens, mesh, d)
         shard_meta, shard_flat = [], []
         for t, dev in enumerate(devices):
-            wls, cnts, fallback = [], [], None
-            for table, bits, ubits in zip(tables, search_bits, uniq_bits):
-                wl, cnt, fb = _map_shard(reads[dev], b, max_mm, table[d][t],
-                                         search_bits=bits, uniq_bits=ubits,
-                                         **kw)
-                wls.append(wl)
-                cnts.append(cnt)
-                fallback = fb if fallback is None else (fallback | fb)
-            meta, flat = pe_map.flat_from_wl(wls, cnts, fallback,
-                                             flat_factor, cand_slab)
-            shard_meta.append(meta)
-            shard_flat.append(flat)
-        return (_gather(shard_meta, devices[0]),
-                _gather(shard_flat, devices[0]))
+            meta, flat = graphs.run(
+                _mate_shard, (reads[dev],), b, max_mm,
+                tuple(table[d][t] for table in tables), lane=d, **kw)
+            shard_meta.append(_own(meta, devices[0]))
+            shard_flat.append(_own(flat, devices[0]))
+        return torch.stack(shard_meta), torch.stack(shard_flat)
 
     metas, flats = zip(*mesh.run_rows(row))
     return _cat_rows(metas, mesh, 1), _cat_rows(flats, mesh, 1)

@@ -117,9 +117,20 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     and of the eager step, their idle shares, and the cached graphs and
     their pools' bytes per device.
 
+18. hg19 tool (last, ~1-2 min): ``tools/hg19_scale_torch.py`` on card 0
+    at HG19_BP bases and HG19_READS reads of 100 bp and of 150 bp, under a
+    memory budget that makes its plan split the SE tables tp=4 (key16 at
+    this size; a virtual mesh on the one card), GA10 and GA11 through a
+    spill directory, work and report in a temporary directory.  Every
+    parity of the tool must hold (mesh at both lengths and the CLI against
+    the exact host path), each read set's fallback must stay below 100%
+    and launch the fused stage.  Prints one ``hg19`` line: tp, per length
+    reads/s, fallback and launches, the CLI's reads/s, and per device the
+    tables, working set, graphs and pool bytes.
+
 The backends run every device step as a CUDA graph replay; the kernel's
 launch counters count each replay's captured launches, so a count is the
-number of times the kernel ran.  Phases 5, 7, 9 and 10 print the working
+number of times the kernel ran.  Phases 5, 7, 9, 10 and 18 print the working
 set, the peak reserved device memory less the resident tables' bytes and
 less what earlier phases still hold (the graphs' pools included); the
 largest sets ``TorchBackend.HBM_RESERVE``, and the script fails if one
@@ -135,7 +146,8 @@ inputs need at 3.35 TB/s or their integer operations, whichever is larger;
 ``launches`` and ``launches_pe`` count the launches of the timed SE and PE
 CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
 and PE runs, ``launches_shifted`` and ``launches_shifted_mesh`` those of
-phase 13's CLI run and mesh runs, ``launches_dp`` those of phase 16;
+phase 13's CLI run and mesh runs, ``launches_dp`` those of phase 16,
+``launches_hg19`` those of phase 18;
 ``chain_ms`` is the replaced chain's device time) and one JSON object
 ``{"ok": true, "device": {...}}``.
 """
@@ -226,26 +238,7 @@ def start_memory(device, *backends) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     return (torch.cuda.memory_allocated(device)
-            - sum(table_bytes(b, device) for b in backends))
-
-
-def table_bytes(backend, device=None) -> int:
-    """Bytes of a backend's resident tables (on ``device``, when given):
-    every distinct tensor storage of its cached tables (a mesh's shards and
-    their shared genome words once)."""
-    import torch
-
-    seen = {}
-    for entry in backend._tables.values():
-        tabs = entry[1]
-        dicts = ([sh for row in tabs for sh in row]
-                 if backend.mesh is not None else [tabs])
-        for d in dicts:
-            for v in d.values():
-                if torch.is_tensor(v) and device in (None, v.device):
-                    st = v.untyped_storage()
-                    seen[st.data_ptr()] = st.nbytes()
-    return sum(seen.values())
+            - sum(b.table_bytes(device) for b in backends))
 
 
 def working_set(device, held: int, *backends) -> float:
@@ -256,7 +249,7 @@ def working_set(device, held: int, *backends) -> float:
     import torch
 
     reserved = torch.cuda.max_memory_reserved(device) - held
-    return (reserved - sum(table_bytes(b, device) for b in backends)) / 2**30
+    return (reserved - sum(b.table_bytes(device) for b in backends)) / 2**30
 
 
 class Recorder:
@@ -834,7 +827,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
                   f"{t1 - t0:.2f} s (tables included), se_exact on all "
                   f"reads {t2 - t1:.2f} s; peak device memory "
                   f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
-                  f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
+                  f"(peak reserved less {backend.table_bytes() / 2**30:.3f} "
                   f"GiB of tables and {held / 2**30:.3f} GiB held before); "
                   f"graphs {backend.graphs.stats()}")
     backend.free_tables()
@@ -1035,7 +1028,7 @@ def pe_parity(index: str, pe, device, min_share: float):
                      f"(tables included), exact ranking + join on all pairs "
                      f"{t_exact:.2f} s; peak device memory "
                      f"{peak / 2**30:.2f} GiB; working set {ws:.3f} GiB "
-                     f"(peak reserved less {table_bytes(backend) / 2**30:.3f} "
+                     f"(peak reserved less {backend.table_bytes() / 2**30:.3f} "
                      f"GiB of tables and {held / 2**30:.3f} GiB held before); "
                      f"graphs {backend.graphs.stats()}")
     backend.free_tables()
@@ -1905,6 +1898,77 @@ def dp_phase(index: str, device) -> dict:
     return c
 
 
+#: phase 18: the hg19 tool's genome bases and reads per read length
+HG19_BP, HG19_READS = 32_000_000, 50_000
+
+
+def hg19_phase() -> tuple:
+    """Phase 18: ``tools/hg19_scale_torch.py`` on card 0 at HG19_BP bases,
+    with a memory budget under which its plan splits the SE tables tp=4 (a
+    virtual mesh on the one card), both read lengths, GA10 and GA11 through
+    a spill directory, and the work and report in a temporary directory.
+    Returns (launches, the largest working set in GiB)."""
+    import importlib.util
+    import tempfile
+
+    from walt_tpu_torch import hbm_plan
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+
+    spec = importlib.util.spec_from_file_location(
+        "hg19_scale_torch", os.path.join(ROOT, "tools", "hg19_scale_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    # between the model's tp=4 key16 card and the cheaper of its tp=2 key16
+    # and tp=4 uniq cards: at this size the per-entry bytes lead, so tp=4
+    # comes with the key16 rung (walt_tpu's hg19 rung)
+    lo = hbm_plan.card_bytes(HG19_BP, 2, 4, False, 0.93)
+    hi = min(hbm_plan.card_bytes(HG19_BP, 2, 2, False, 0.93),
+             hbm_plan.card_bytes(HG19_BP, 2, 4, True, 0.93))
+    hbm_gib = (TorchBackend.HBM_RESERVE + (lo + hi) / 2) / 2**30
+    with tempfile.TemporaryDirectory(prefix="hg19_phase_") as tmp:
+        report = os.path.join(tmp, "report.json")
+        zero_counts()
+        with environ(WALTX_HG19_BP=HG19_BP, WALTX_HG19_READS=HG19_READS,
+                     WALTX_HG19_DIR=os.path.join(tmp, "work"),
+                     WALTX_HG19_REPORT=report):
+            rc, wall = timed(lambda: tool.main(
+                ["--hbm-gib", f"{hbm_gib:.6f}", "--spill-dir",
+                 os.path.join(tmp, "spill")]))
+        c = counts()
+        with open(report) as f:
+            rep = json.load(f)
+    mm, cli = rep["mesh_map"], rep["cli_map"]
+    if rc != 0 or not all(all(p.values()) for p in rep["parities"].values()):
+        raise AssertionError(f"hg19: rc {rc}, parities {rep['parities']}")
+    if (mm["tp"], mm["virtual"], rep["spill"]["tables"]) != (
+            4, True, ["GA10", "GA11"]):
+        raise AssertionError(f"hg19: tp={mm['tp']}, virtual "
+                             f"{mm['virtual']}, spilled "
+                             f"{rep['spill']['tables']}")
+    lengths = mm["by_length"]
+    if any(v["fallback_pct"] >= 100 or v["verify_launches"] <= 0
+           for v in lengths.values()) or c["verify_worklist"] <= 0 or \
+            c["verify_windows"]:
+        raise AssertionError(f"hg19: {lengths}, launches {c}: every read "
+                             f"set must launch the fused stage, K1 never")
+    per = mm["per_device"]
+    say("hg19", f"phase 18, tools/hg19_scale_torch.py at {HG19_BP} bp, "
+                f"{HG19_READS} reads per length, in {wall:.1f} s: plan "
+                f"{rep['plan']}; tp={mm['tp']} {mm['accel']} virtual mesh, "
+                f"tables placed in {mm['setup_s']} s; " + "; ".join(
+                    f"{k} bp {v['reads_per_s']} reads/s, fallback "
+                    f"{v['fallback_pct']}%, {v['verify_launches']} launches"
+                    for k, v in lengths.items())
+                + f"; CLI (--tp 4, one card) {cli['reads_per_s']} reads/s; "
+                f"per device: " + "; ".join(
+                    f"{d} tables {v['table_gib']} GiB, working set "
+                    f"{v['working_set_gib']} GiB, {v['graphs']} graphs, pools "
+                    f"{v['pool_bytes']} B" for d, v in per.items())
+                + f"; MR and .mapstats byte-identical to the exact host "
+                  f"path (mesh at 100 and 150 bp, CLI); launches {c}")
+    return c, max(v["working_set_gib"] for v in per.values())
+
+
 class EagerSteps:
     """``ops/graphs.StepCache``'s interface with every step run eagerly:
     phase 17's reference for a mesh's graph steps (the sharded steps take
@@ -2132,10 +2196,12 @@ def main() -> int:
         straddling_filler(index))
     knobs_phase(index, se_sub, pe_sub, device)
     launches_dp = dp_phase(index, device)
+    launches_hg19, ws_hg19 = hg19_phase()
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
-    sets = dict(se=ws_se, pe=ws_pe, mesh_se=ws_mesh, mesh_pe=ws_mesh_pe)
+    sets = dict(se=ws_se, pe=ws_pe, mesh_se=ws_mesh, mesh_pe=ws_mesh_pe,
+                hg19=ws_hg19)
     reserve = TorchBackend.HBM_RESERVE / 2**30
     say("reserve", f"working sets (peak reserved less resident tables) "
                    f"{', '.join(f'{k} {v:.3f}' for k, v in sets.items())} "
@@ -2152,7 +2218,7 @@ def main() -> int:
                 launches_mesh_pe=launches_mesh_pe,
                 launches_shifted=launches_shifted,
                 launches_shifted_mesh=launches_shifted_mesh,
-                launches_dp=launches_dp)
+                launches_dp=launches_dp, launches_hg19=launches_hg19)
 
     def entry(name, source, nums, **extra):
         return {"name": name, "route": "cuda", "source": source,

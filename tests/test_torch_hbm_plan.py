@@ -1,9 +1,11 @@
 """walt_tpu_torch.hbm_plan against walt_tpu.hbm_plan, and the H100 plans.
 
-At the JAX package's 16 GiB and 4.25 GiB reserve the port's plan equals
-walt_tpu's field by field (the entry limit never binds there); at an H100's
-79.1 GiB the entry limit decides tp, and no plan ever holds a shard of
-2^31 entries or more.  Shards are equal bucket-key ranges, so the plan
+At the JAX package's 16 GiB and 4.25 GiB reserve the port's plan with
+every table split evenly over the cards equals walt_tpu's field by field
+(the entry limit never binds there); the port sizes each width by its
+heaviest card, never below the even split.  At an H100's 79.1 GiB the
+entry limit decides tp, and no plan ever holds a shard of 2^31 entries or
+more.  Shards are equal bucket-key ranges, so the plan
 bounds the heaviest one: a table of human base composition shows that its
 model bounds the runtime's split, and that the runtime accepts the width
 the plan picks where an even split's count would have picked a narrower
@@ -37,26 +39,49 @@ GRID = [100_000_000, 250_000_000, 500_000_000, 1_000_000_000,
         2_000_000_000, SHIFTED, HG19, 4_000_000_000]
 
 
-def _same(bp, nt, **kw):
+def _even(tp, n_tables, counters=None):
+    """walt_tpu's split: every table's entries evenly over the cards."""
+    return np.full((n_tables, tp), 1 / tp)
+
+
+def _same(monkeypatch, bp, nt, **kw):
     want = jplan.plan_tables(bp, nt, **kw)
-    got = hbm_plan.plan_tables(bp, nt, hbm_bytes=JAX_HBM,
-                               reserve=JAX_RESERVE, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(hbm_plan, "card_shares", _even)
+        got = hbm_plan.plan_tables(bp, nt, hbm_bytes=JAX_HBM,
+                                   reserve=JAX_RESERVE, **kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert hbm_plan.heaviest_shard(bp, got.tp) < ENTRY_LIMIT
+    # the heaviest card carries at least the even split's bytes: the same
+    # layout with more bytes per card, or a wider one
+    try:
+        heavy = hbm_plan.plan_tables(bp, nt, hbm_bytes=JAX_HBM,
+                                     reserve=JAX_RESERVE, **kw)
+    except ValueError:  # no width's heaviest card fits, key16 at 64 either
+        assert hbm_plan.card_bytes(
+            bp, nt, 64, False, kw.get("uniq_ratio", 1.0),
+            kw.get("b_small", False)) > JAX_HBM - JAX_RESERVE
+        return got
+    assert heavy.fits() and heavy.tp >= got.tp
+    assert (heavy.per_table_base, heavy.genome_bp) == (got.per_table_base,
+                                                       got.genome_bp)
+    if (heavy.tp, heavy.uniq) == (got.tp, got.uniq):
+        assert heavy.per_chip_bytes >= got.per_chip_bytes
+        assert heavy.per_chip_bytes > got.per_chip_bytes or got.tp == 1
     return got
 
 
 @pytest.mark.parametrize("bp,nt,kw", JAX_CASES)
-def test_equals_walt_tpu_on_its_cases(bp, nt, kw):
-    _same(bp, nt, uniq_ratio=0.93, **kw)
+def test_equals_walt_tpu_on_its_cases(monkeypatch, bp, nt, kw):
+    _same(monkeypatch, bp, nt, uniq_ratio=0.93, **kw)
 
 
 @pytest.mark.parametrize("nt", [2, 4])
 @pytest.mark.parametrize("bp", GRID)
-def test_equals_walt_tpu_on_the_grid(bp, nt):
+def test_equals_walt_tpu_on_the_grid(monkeypatch, bp, nt):
     for ratio in (1.0, 0.93):
         for b_small in (False, True):
-            _same(bp, nt, uniq_ratio=ratio, b_small=b_small)
+            _same(monkeypatch, bp, nt, uniq_ratio=ratio, b_small=b_small)
 
 
 def test_table_bytes_equal_walt_tpu():
@@ -67,14 +92,17 @@ def test_table_bytes_equal_walt_tpu():
     assert hbm_plan.NB1 == jplan.NB1
 
 
-@pytest.mark.parametrize("bp,nt,tp,gib", [(HG19, 2, 4, 18.03),
-                                          (HG19, 4, 4, 36.06),
-                                          (SHIFTED, 2, 2, 25.09)])
+@pytest.mark.parametrize("bp,nt,tp,gib", [(HG19, 2, 4, 35.20),
+                                          (HG19, 4, 4, 56.86),
+                                          (SHIFTED, 2, 2, 35.37)])
 def test_h100_plans(bp, nt, tp, gib):
     """On 79.1 GiB one card would hold the tables in memory, but not their
     entries in int32 indices, and hg19's heavier tp=2 shard (~0.71 of 3.1e9
     entries) is past 2^31 too: hg19 at tp=4, the 2.24 Gbp genome at tp=2,
-    uniq."""
+    uniq.  The heaviest card's bytes: hg19 SE's T-range card holds ~0.51
+    of both C->T tables (the even split's 18.03 GiB would be a quarter);
+    PE's T-range card also ~0.305 of both G->A tables (36.06 even); the
+    2.24 Gbp genome's {G, T} card ~0.715 of each (25.09 even)."""
     p = hbm_plan.plan_tables(bp, nt, hbm_bytes=H100_HBM,
                              reserve=JAX_RESERVE, uniq_ratio=0.93)
     assert (p.tp, p.uniq) == (tp, True) and p.fits()
@@ -107,9 +135,10 @@ def test_no_plan_reaches_the_entry_limit(hbm_gib):
 
 
 @pytest.fixture(scope="module")
-def human_like():
-    """(genome bases, the two SE tables' counters) of a 1 Mbp random genome
-    with hg19's base composition (A = T = 0.295, C = G = 0.205)."""
+def human_tables():
+    """(genome bases, the two SE tables (converted genome, table)) of a
+    1 Mbp random genome with hg19's base composition (A = T = 0.295, C = G
+    = 0.205)."""
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.index.build import build_table
     from walt_tpu_torch.synth import make_genome
@@ -118,10 +147,16 @@ def human_like():
     rng = np.random.default_rng(3)
     g = dataclasses.replace(g, seq=rng.choice(
         4, g.seq.shape[0], p=[0.295, 0.205, 0.205, 0.295]).astype(np.uint8))
-    counters = [build_table(g, conv, get_pattern("3"), verbose=False,
-                            sort_threads=1)[1].counter
-                for conv in ("CT00", "CT01")]
-    return int(g.seq.shape[0]), counters
+    return int(g.seq.shape[0]), [
+        build_table(g, conv, get_pattern("3"), verbose=False, sort_threads=1)
+        for conv in ("CT00", "CT01")]
+
+
+@pytest.fixture(scope="module")
+def human_like(human_tables):
+    """(genome bases, the two SE tables' counters) of :func:`human_tables`."""
+    n, tables = human_tables
+    return n, [ht.counter for _, ht in tables]
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 8, 16])
@@ -137,6 +172,51 @@ def test_model_bounds_the_runtime_split(human_like, tp):
     assert measured <= hbm_plan.heaviest_shard(n, tp)
     if tp == 2:  # the heavier half really is uneven: ~0.705 of the entries
         assert measured > 0.69 * int(counters[0][-1])
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_card_shares_bound_the_runtime_split(human_like, tp):
+    """Each card's modelled share of each SE table bounds its share of the
+    runtime's split, which is what the counters give."""
+    n, counters = human_like
+    measured = hbm_plan.card_shares(tp, 2, counters)
+    model = hbm_plan.card_shares(tp, 2)
+    assert measured.shape == model.shape == (2, tp)
+    assert (measured <= model).all()
+    for c, row in zip(counters, measured):
+        _, bounds = sharded.bucket_range_bounds(c, tp)
+        assert np.allclose(row * int(c[-1]), np.diff(bounds))
+    # a C->T table has no C: the C-range cards of tp=4 hold nothing
+    if tp == 4:
+        assert (measured[:, 1] == 0).all()
+        assert 0.45 < measured[:, 3].min() <= measured[:, 3].max() < 0.51
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_card_bytes_bound_the_placed_shards(human_tables, tp):
+    """The heaviest card's modelled bytes are the bytes shard_and_place puts
+    on it: within a few hundred bytes with the counters and the run count
+    of the placed shards, and bounded by the size-only model."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.ops import device_index
+    from walt_tpu_torch.parallel import make_mesh
+
+    n, tables = human_tables
+    pattern = get_pattern("3")
+    mesh = make_mesh([torch.device("cpu")] * tp, tp=tp)
+    per_card, runs = np.zeros(tp, np.int64), 0
+    for g, ht in tables:
+        dt = device_index.build_device_table(g, ht, pattern)
+        grid, _ = sharded.shard_and_place(dt, mesh, pattern, accel="uniq")
+        for t, sh in enumerate(grid[0]):
+            per_card[t] += sum(v.untyped_storage().nbytes()
+                               for v in sh.values() if torch.is_tensor(v))
+            runs += sh["uniq_words"].shape[0]
+    counters = [ht.counter for _, ht in tables]
+    model = hbm_plan.card_bytes(n, 2, tp, True, runs / (2 * n),
+                                counters=counters)
+    assert per_card.max() <= model < per_card.max() + 4096
+    assert model <= hbm_plan.card_bytes(n, 2, tp, True, 1.0)
 
 
 @pytest.mark.parametrize("use_counters", [False, True])

@@ -293,6 +293,21 @@ class TorchBackend:
         return (len(genome.seq) // 4 + 268 + 4 * nb1 + table.index.nbytes
                 + genome.start_index.nbytes + (nb1 - 1))
 
+    def table_bytes(self, device=None) -> int:
+        """Bytes of the resident tables (on ``device``, when given): every
+        distinct tensor storage of the cached tables, a mesh's shards and
+        the genome words they share counted once per device."""
+        seen = {}
+        for entry in self._tables.values():
+            dicts = ([sh for row in entry[1] for sh in row]
+                     if self.mesh is not None else [entry[1]])
+            for d in dicts:
+                for v in d.values():
+                    if torch.is_tensor(v) and device in (None, v.device):
+                        st = v.untyped_storage()
+                        seen[v.device, st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
+
     def _resident_bytes(self) -> int:
         return sum(_nbytes(v) for entry in self._tables.values()
                    for v in entry[1].values())

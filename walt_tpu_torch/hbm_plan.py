@@ -28,12 +28,18 @@ enforces per table and per shard (``parallel/sharded._shard_bounds``).
 Shards are equal bucket-key ranges, not equal entry counts, so the plan
 bounds the heaviest shard (:func:`heaviest_shard`): measured on the
 tables' counters when they exist, else from the genome size and a human
-genome's base composition.  On a 16 GiB device memory binds first and the
-limit never does, so the plan is the JAX package's.  On an 80 GB card the
-limit binds first: one card would hold hg19's 3.1e9-entry SE tables with
-the uniq index, but no int32 index reaches their entries, and the heavier
-of two shards holds ~70% of them (2.2e9, past 2^31 too), so hg19 deploys
-at tp=4.
+genome's base composition.  The same split sizes each card's bytes: the
+per-bucket arrays (counters, flags) split evenly, the per-entry arrays
+(index, uniq runs or key16 prefixes) by each card's share of every table's
+entries (:func:`card_shares`), and the plan holds the heaviest card.  A
+C->T table has no C and a G->A table no G, so at tp=4 the T-range card
+holds about half of each C->T table: hg19 SE's heaviest card carries about
+twice the even split's bytes (walt_tpu's plan splits them evenly).  On a
+16 GiB device memory binds first and the entry limit never does.  On an
+80 GB card the limit binds first: one card would hold hg19's
+3.1e9-entry SE tables with the uniq index, but no int32 index reaches
+their entries, and the heavier of two shards holds ~70% of them (2.2e9,
+past 2^31 too), so hg19 deploys at tp=4.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import math
 import numpy as np
 import torch
 
+from walt_tpu_torch.index.build import CONVERSIONS
 from walt_tpu_torch.ops import pipeline
 
 NB1 = 4**12 + 1  # CSR counter entries (pattern 3 key weight 12)
@@ -64,7 +71,7 @@ class TablePlan:
     key_words: int         # packed key words stored (0 when uniq)
     per_table_base: int    # bytes: pseq + counter + index + flags
     per_table_accel: int   # bytes: uniq or key words
-    per_chip_bytes: int    # resident bytes on each card
+    per_chip_bytes: int    # resident bytes on the heaviest card
     hbm_bytes: int
     reserve: int
 
@@ -94,23 +101,61 @@ def device_memory(device=None) -> int:
     return int(torch.cuda.mem_get_info(device)[1])
 
 
-def heaviest_share(tp: int) -> float:
-    """Share of a table's entries on the heaviest of ``tp`` (a power of two)
-    bucket-range shards of a human genome.
+def _strand_bases(conversion: str) -> tuple:
+    """(A, C, G, T) shares of a human genome's converted strand: a strand
+    holds about as much A as T and C as G; a C->T table reads every C as
+    T, a G->A table every G as A."""
+    at, gc = (1 - HUMAN_GC) / 2, HUMAN_GC / 2
+    if conversion.startswith("CT"):
+        return at, 0.0, gc, at + gc
+    return at + gc, gc, 0.0, at
+
+
+def _model_shares(tp: int, conversion: str) -> np.ndarray:
+    """Share of a human ``conversion`` table's entries on each of ``tp`` (a
+    power of two) bucket-range shards.
 
     The runtime splits the 4^12 buckets into tp equal key ranges, and a
-    key's top bits are its position's first cared base (A < C < G < T,
-    ``index/build.seed_keys``).  A C->T table has no C, a G->A table no G;
-    a strand holds about as much A as T and C as G.  So at tp=2 the heavier
-    shard holds {G, T} of a C->T table ({A, C} of a G->A one), 1 - A =
-    0.5 + GC/2 (0.705 for hg19); at tp=4 one base, T + C (A + G), 0.5.
-    Each wider split takes the next key bit the same way, the bases taken
-    as independent.  Each factor carries a margin of ``_SHARE_MARGIN``.
+    key's top bits are its position's first cared bases, two bits each (A <
+    C < G < T, ``index/build.seed_keys``): shard c's top bits are c's.  A
+    whole base takes its share; a last single bit takes its half of the
+    alphabet ({A, C} or {G, T}).  The bases are taken as independent, and
+    each factor carries a margin of ``_SHARE_MARGIN``.
     """
     k = tp.bit_length() - 1
-    half = 0.5 + HUMAN_GC / 2 + _SHARE_MARGIN
-    base = 0.5 + _SHARE_MARGIN
-    return min(1.0, base ** (k // 2) * half ** (k % 2))
+    p = _strand_bases(conversion)
+    out = np.ones(tp)
+    for c in range(tp):
+        for j in range(k // 2):
+            out[c] *= p[(c >> (k - 2 * (j + 1))) & 3] + _SHARE_MARGIN
+        if k % 2:
+            h = c & 1
+            out[c] *= p[2 * h] + p[2 * h + 1] + _SHARE_MARGIN
+    return np.minimum(out, 1.0)
+
+
+def heaviest_share(tp: int) -> float:
+    """Share of a table's entries on the heaviest of ``tp`` (a power of two)
+    bucket-range shards of a human genome: at tp=2 the heavier shard holds
+    {G, T} of a C->T table ({A, C} of a G->A one), 1 - A = 0.5 + GC/2
+    (0.705 for hg19); at tp=4 one base, T + C (A + G), 0.5; each wider
+    split takes the next key bit the same way (:func:`_model_shares`)."""
+    return float(_model_shares(tp, "CT00").max())
+
+
+def card_shares(tp: int, n_tables: int, counters=None) -> np.ndarray:
+    """(n_tables, tp) share of each resident table's entries on each of the
+    ``tp`` cards: the runtime's own split of ``counters`` (the tables' CSR
+    counters) when given, else a human genome's (:func:`_model_shares`),
+    the tables taken in ``index/build.CONVERSIONS`` order (SE: CT00,
+    CT01; PE: all four)."""
+    if counters is not None:
+        from walt_tpu_torch.parallel.sharded import bucket_range_bounds
+
+        return np.array([np.diff(bucket_range_bounds(c, tp)[1])
+                         / max(1, int(c[-1])) for c in counters])
+    return np.array([_model_shares(tp, conv)
+                     for conv in CONVERSIONS[:n_tables]])
 
 
 def heaviest_shard(genome_bp: int, tp: int, counters=None) -> int:
@@ -129,6 +174,28 @@ def heaviest_shard(genome_bp: int, tp: int, counters=None) -> int:
     return math.ceil(genome_bp * heaviest_share(tp))
 
 
+def card_bytes(genome_bp: int, n_tables: int, tp: int, uniq: bool = True,
+               uniq_ratio: float = 1.0, b_small: bool = False,
+               counters=None) -> int:
+    """Resident table bytes on the heaviest of ``tp`` cards.
+
+    The packed genome words are replicated on every card; the per-bucket
+    arrays (counter and flags, and the uniq run counter) split evenly; the
+    per-entry arrays (index, and the uniq runs or key16 prefixes, and the
+    exact_b key words when ``b_small``) follow each card's share of every
+    table's entries (:func:`card_shares` of ``counters``, else of a human
+    genome's ``n_tables`` tables).  With every share 1/tp this is walt_tpu's
+    even split.
+    """
+    base, uq, kw16 = table_bytes(genome_bp, uniq_ratio)
+    pseq = genome_bp // 4 + 272
+    buckets = 4 * NB1 + NB1 - 1 + (4 * NB1 if uniq else 0)
+    entries = (base - pseq + (uq if uniq else kw16) - buckets
+               + (12 * genome_bp if b_small else 0))
+    heavy = float(card_shares(tp, n_tables, counters).sum(axis=0).max())
+    return n_tables * pseq + int(n_tables * buckets / tp + entries * heavy)
+
+
 def plan_tables(genome_bp: int, n_tables: int = 2,
                 hbm_bytes: int | None = None, reserve: int | None = None,
                 uniq_ratio: float = 1.0, b_small: bool = False,
@@ -141,7 +208,8 @@ def plan_tables(genome_bp: int, n_tables: int = 2,
     uses -b below the verify slabs, so the exact_b path needs all 3 packed
     key words (12n/table) regardless of uniq.  A width whose heaviest shard
     (:func:`heaviest_shard` of ``counters``, else of ``genome_bp``) would
-    hold ``pipeline.ENTRY_LIMIT`` entries or more is skipped.
+    hold ``pipeline.ENTRY_LIMIT`` entries or more is skipped.  A width fits
+    when its heaviest card (:func:`card_bytes`) does.
     """
     if hbm_bytes is None:
         hbm_bytes = device_memory()
@@ -151,26 +219,19 @@ def plan_tables(genome_bp: int, n_tables: int = 2,
         reserve = TorchBackend.HBM_RESERVE
     base, uniq, kw16 = table_bytes(genome_bp, uniq_ratio)
     budget = hbm_bytes - reserve
-    pseq = genome_bp // 4 + 272
-    repl = n_tables * pseq  # replicated on every shard
-    extra_kw = 12 * genome_bp if b_small else 0
 
     tp = 1
     while tp <= max_tp:
         if heaviest_shard(genome_bp, tp, counters) >= pipeline.ENTRY_LIMIT:
             tp *= 2
             continue
-        shardable_uniq = n_tables * (base - pseq + uniq + extra_kw)
-        shardable_kw16 = n_tables * (base - pseq + kw16 + extra_kw)
-        per_chip_uniq = repl + shardable_uniq // tp
-        per_chip_kw16 = repl + shardable_kw16 // tp
-        if per_chip_uniq <= budget:
-            return TablePlan(genome_bp, n_tables, tp, True, 3 if b_small else 0,
-                             base, uniq, per_chip_uniq, hbm_bytes, reserve)
-        if per_chip_kw16 <= budget:
-            return TablePlan(genome_bp, n_tables, tp, False,
-                             3 if b_small else 1, base, kw16,
-                             per_chip_kw16, hbm_bytes, reserve)
+        for use_uniq, accel in ((True, uniq), (False, kw16)):
+            per_card = card_bytes(genome_bp, n_tables, tp, use_uniq,
+                                  uniq_ratio, b_small, counters)
+            if per_card <= budget:
+                return TablePlan(genome_bp, n_tables, tp, use_uniq,
+                                 3 if b_small else int(not use_uniq), base,
+                                 accel, per_card, hbm_bytes, reserve)
         tp *= 2
     raise ValueError(
         f"{genome_bp} bp x {n_tables} tables does not fit {max_tp} shards"

@@ -21,7 +21,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
    it replaced (the torch ops around K1: chain, kernel, kernel, chain) and
    with its plain version, with the device events per call of each.  Each
    kernel's window must hold exactly one device event per call (a short
-   window is profiled again, at most PROFILE_ATTEMPTS times);
+   window is profiled again, at most PROFILE_ATTEMPTS times; each kernel
+   line prints the attempts its windows took);
 4. data: a 128 Mbp repetitive synthetic genome (about the size of the
    Arabidopsis thaliana genome, a standard WGBS organism), its WALT index,
    1,000,000 x 100 bp bisulfite reads and 500,000 x 100 bp bisulfite read
@@ -118,15 +119,21 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     their pools' bytes per device.
 
 18. hg19 tool (last, ~1-2 min): ``tools/hg19_scale_torch.py`` on card 0
-    at HG19_BP bases and HG19_READS reads of 100 bp and of 150 bp, under a
-    memory budget that makes its plan split the SE tables tp=4 (key16 at
-    this size; a virtual mesh on the one card), GA10 and GA11 through a
-    spill directory, work and report in a temporary directory.  Every
-    parity of the tool must hold (mesh at both lengths and the CLI against
-    the exact host path), each read set's fallback must stay below 100%
-    and launch the fused stage.  Prints one ``hg19`` line: tp, per length
-    reads/s, fallback and launches, the CLI's reads/s, and per device the
-    tables, working set, graphs and pool bytes.
+    at HG19_BP bases, HG19_READS reads of 100 bp and of 150 bp and as many
+    pairs of 2x100 and 2x150 bp, its plans under HG19_ENTRY_LIMIT (a
+    shard's entry limit scaled to this genome, which refuses tp=1 and 2
+    as 2^31 does hg19's) and a memory budget under which both the SE plan
+    (two tables) and the PE plan (four) split them tp=4 with key16 (a
+    virtual mesh on the one card), GA10 and GA11 through a spill
+    directory, work and report in a temporary directory.  Every parity of
+    the tool must hold (mesh at both lengths and the CLI against the exact
+    host path, SE and PE), each read set's fallback must stay below 100%,
+    each pair set's device-resolved pair share above 0, each run must
+    launch the fused stage and never K1, and no batch may go to the host
+    after a device out-of-memory error.  Prints one ``hg19`` line: the
+    plans, per length reads/s or pairs/s, fallback or pair share and
+    launches, the CLIs' rates, and per device SE / PE the tables, working
+    set, graphs and pool bytes.
 
 The backends run every device step as a CUDA graph replay; the kernel's
 launch counters count each replay's captured launches, so a count is the
@@ -147,7 +154,8 @@ inputs need at 3.35 TB/s or their integer operations, whichever is larger;
 CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
 and PE runs, ``launches_shifted`` and ``launches_shifted_mesh`` those of
 phase 13's CLI run and mesh runs, ``launches_dp`` those of phase 16,
-``launches_hg19`` those of phase 18;
+``launches_hg19`` and ``launches_hg19_pe`` those of phase 18's SE and PE
+runs (mesh and CLI);
 ``chain_ms`` is the replaced chain's device time) and one JSON object
 ``{"ok": true, "device": {...}}``.
 """
@@ -196,6 +204,9 @@ MAX_UNIQ_BUILD_GIB = 0.5
 #: profiling windows tried before a kernel's or a stage's device record
 #: counts as incomplete (the profiler can lose a window's first records)
 PROFILE_ATTEMPTS = 5
+#: the attempts each complete profiling window took, in order (phase 3's
+#: ``kernel`` lines print their windows')
+profile_attempts = []
 #: phase 13's filler chromosome in front of phase 4's genome: a multiple of
 #: 16 (the packed words keep their bits), so phase 4's first chromosome
 #: straddles 2^31 and the genome ends at 2,243,483,648 < 2^32
@@ -379,6 +390,7 @@ def device_profile(fn, reps: int = 20, events: int | None = None):
                    and any(w in name for w in st.LAUNCH_WORDS))
         per_call = len(dev) / reps
         if dev and (events is None or (per_call == events and not lost)):
+            profile_attempts.append(attempt)
             return sum(float(e["dur"]) for e in dev) / 1e3 / reps, per_call
         say("kernel", f"profiling window {attempt}: {per_call} device events "
                       f"per call (want {events or 'some'}), {lost} launches "
@@ -570,6 +582,7 @@ def check_verify_kernel(device, Wg: int):
     from walt_tpu_torch.ops import packing, verify
 
     rng = np.random.default_rng(2024)
+    window0 = len(profile_attempts)
     shapes = [(MAIN_M, MAIN_W), (PE_M, MAIN_W), (1001, 7), (257, 7),
               (5003, 1), (5003, 3), (5003, 13), (5003, 63)]
     err = 0
@@ -610,7 +623,8 @@ def check_verify_kernel(device, Wg: int):
                   f"M={PE_M}: device time kernel {pe_k * 1e3:.1f} us, plain "
                   f"{pe_p * 1e3:.1f} us per call; bound at M={MAIN_M} "
                   f"{k_bound[0] * 1e3:.2f} us ({k_bound[1]}), at M={PE_M} "
-                  f"{pe_bound[0] * 1e3:.2f} us")
+                  f"{pe_bound[0] * 1e3:.2f} us; profiling attempts per "
+                  f"window {profile_attempts[window0:]}")
     return dict(max_abs_err=err, ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2,
                 wall_ms=(k1 + k2) / 2, plain_wall_ms=(p1 + p2) / 2,
                 bound_ms=k_bound[0], bound_by=k_bound[1], pe_ms=pe_k,
@@ -652,6 +666,7 @@ def check_stage_kernel(device, Wg: int):
     from walt_tpu_torch.ops import verify
 
     rng = np.random.default_rng(2025)
+    window0 = len(profile_attempts)
     main = {}
     past = 0  # kept windows at or past 2^31
     for M, B, W, opts in STAGE_SHAPES:
@@ -707,7 +722,9 @@ def check_stage_kernel(device, Wg: int):
                   f"{wp1 * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us ({b_by}), "
                   f"kernel at {100 * b_ms / ((k1[0] + k2[0]) / 2):.0f}% of "
                   f"it; at the PE shape M={PE_M}: kernel {pe_k * 1e3:.1f} us, "
-                  f"chain {pe_c * 1e3:.1f} us, bound {pe_b_ms * 1e3:.2f} us")
+                  f"chain {pe_c * 1e3:.1f} us, bound {pe_b_ms * 1e3:.2f} us; "
+                  f"profiling attempts per window "
+                  f"{profile_attempts[window0:]}")
     if not past:
         raise AssertionError("no fused-stage shape kept a window past 2^31")
     return dict(max_abs_err=0, ms=(k1[0] + k2[0]) / 2, plain_ms=p1[0],
@@ -1898,16 +1915,23 @@ def dp_phase(index: str, device) -> dict:
     return c
 
 
-#: phase 18: the hg19 tool's genome bases and reads per read length
+#: phase 18: the hg19 tool's genome bases, and reads and pairs per read
+#: length
 HG19_BP, HG19_READS = 32_000_000, 50_000
+#: phase 18's entry limit for the plans: 0.6 of a table, so that, as for
+#: hg19 on an 80 GB card, the limit refuses tp=1 and tp=2 (the heavier
+#: half of a table holds ~0.7 of it) and memory picks the rung at tp=4
+HG19_ENTRY_LIMIT = 19_200_000
 
 
 def hg19_phase() -> tuple:
     """Phase 18: ``tools/hg19_scale_torch.py`` on card 0 at HG19_BP bases,
-    with a memory budget under which its plan splits the SE tables tp=4 (a
-    virtual mesh on the one card), both read lengths, GA10 and GA11 through
-    a spill directory, and the work and report in a temporary directory.
-    Returns (launches, the largest working set in GiB)."""
+    its plans under HG19_ENTRY_LIMIT and a memory budget under which both
+    the SE plan (two tables) and the PE plan (four) split them tp=4 with
+    the key16 rung (a virtual mesh on the one card), both read and pair
+    lengths, GA10 and GA11 through a spill directory, and the work and
+    report in a temporary directory.  Returns (SE launches, PE launches,
+    the largest working set in GiB)."""
     import importlib.util
     import tempfile
 
@@ -1918,12 +1942,12 @@ def hg19_phase() -> tuple:
         "hg19_scale_torch", os.path.join(ROOT, "tools", "hg19_scale_torch.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    # between the model's tp=4 key16 card and the cheaper of its tp=2 key16
-    # and tp=4 uniq cards: at this size the per-entry bytes lead, so tp=4
-    # comes with the key16 rung (walt_tpu's hg19 rung)
-    lo = hbm_plan.card_bytes(HG19_BP, 2, 4, False, 0.93)
-    hi = min(hbm_plan.card_bytes(HG19_BP, 2, 2, False, 0.93),
-             hbm_plan.card_bytes(HG19_BP, 2, 4, True, 0.93))
+    # between the model's tp=4 key16 card of the four PE tables and the
+    # cheaper tp=4 uniq card (SE's): with tp=1 and tp=2 out of the limit's
+    # reach, both plans take tp=4 key16 (walt_tpu's hg19 rung)
+    lo = hbm_plan.card_bytes(HG19_BP, 4, 4, False, 0.93)
+    hi = min(hbm_plan.card_bytes(HG19_BP, 2, 4, True, 0.93),
+             hbm_plan.card_bytes(HG19_BP, 4, 4, True, 0.93))
     hbm_gib = (TorchBackend.HBM_RESERVE + (lo + hi) / 2) / 2**30
     with tempfile.TemporaryDirectory(prefix="hg19_phase_") as tmp:
         report = os.path.join(tmp, "report.json")
@@ -1933,40 +1957,66 @@ def hg19_phase() -> tuple:
                      WALTX_HG19_REPORT=report):
             rc, wall = timed(lambda: tool.main(
                 ["--hbm-gib", f"{hbm_gib:.6f}", "--spill-dir",
-                 os.path.join(tmp, "spill")]))
+                 os.path.join(tmp, "spill"), "--entry-limit",
+                 str(HG19_ENTRY_LIMIT)]))
         c = counts()
         with open(report) as f:
             rep = json.load(f)
     mm, cli = rep["mesh_map"], rep["cli_map"]
+    pe, cli_pe = rep["mesh_map_pe"], rep["cli_map_pe"]
     if rc != 0 or not all(all(p.values()) for p in rep["parities"].values()):
-        raise AssertionError(f"hg19: rc {rc}, parities {rep['parities']}")
-    if (mm["tp"], mm["virtual"], rep["spill"]["tables"]) != (
-            4, True, ["GA10", "GA11"]):
-        raise AssertionError(f"hg19: tp={mm['tp']}, virtual "
-                             f"{mm['virtual']}, spilled "
-                             f"{rep['spill']['tables']}")
-    lengths = mm["by_length"]
-    if any(v["fallback_pct"] >= 100 or v["verify_launches"] <= 0
-           for v in lengths.values()) or c["verify_worklist"] <= 0 or \
-            c["verify_windows"]:
-        raise AssertionError(f"hg19: {lengths}, launches {c}: every read "
-                             f"set must launch the fused stage, K1 never")
-    per = mm["per_device"]
+        raise AssertionError(f"hg19: rc {rc}, parities {rep['parities']}, "
+                             f"failures {rep.get('failures')}")
+    layout = [(m["tp"], m["virtual"], m["accel"]) for m in (mm, pe)]
+    if layout != [(4, True, "key16")] * 2 or rep["spill"]["tables"] != [
+            "GA10", "GA11"]:
+        raise AssertionError(f"hg19: SE and PE (tp, virtual, accel) "
+                             f"{layout}, spilled {rep['spill']['tables']}")
+    lengths, pe_lengths = mm["by_length"], pe["by_length"]
+    runs = list(lengths.values()) + list(pe_lengths.values()) + [cli, cli_pe]
+    se_launches = mm["verify_launches"] + cli["verify_launches"]
+    pe_launches = pe["verify_launches"] + cli_pe["verify_launches"]
+    if any(v["fallback_pct"] >= 100 for v in lengths.values()) or any(
+            v["pair_share"] <= 0 for v in pe_lengths.values()) or any(
+            v["verify_launches"] <= 0 or v["degraded_batches"]
+            for v in runs) or c["verify_windows"] or \
+            c["verify_worklist"] != se_launches + pe_launches:
+        raise AssertionError(f"hg19: SE {lengths}, PE {pe_lengths}, CLI "
+                             f"{cli} / {cli_pe}, launches {c}: every read "
+                             f"and pair set must resolve on the device and "
+                             f"launch the fused stage, K1 never, and no "
+                             f"batch may go to the host after a device OOM")
+    per, per_pe = mm["per_device"], pe["per_device"]
     say("hg19", f"phase 18, tools/hg19_scale_torch.py at {HG19_BP} bp, "
-                f"{HG19_READS} reads per length, in {wall:.1f} s: plan "
-                f"{rep['plan']}; tp={mm['tp']} {mm['accel']} virtual mesh, "
-                f"tables placed in {mm['setup_s']} s; " + "; ".join(
+                f"{HG19_READS} reads and pairs per length, in {wall:.1f} s: "
+                f"plans {rep['plan']}; {rep['plan_pe']}; tp=4 {mm['accel']} "
+                f"virtual meshes, tables placed in {mm['setup_s']} s (SE) "
+                f"and {pe['setup_s']} s (PE); " + "; ".join(
                     f"{k} bp {v['reads_per_s']} reads/s, fallback "
                     f"{v['fallback_pct']}%, {v['verify_launches']} launches"
                     for k, v in lengths.items())
-                + f"; CLI (--tp 4, one card) {cli['reads_per_s']} reads/s; "
-                f"per device: " + "; ".join(
-                    f"{d} tables {v['table_gib']} GiB, working set "
-                    f"{v['working_set_gib']} GiB, {v['graphs']} graphs, pools "
-                    f"{v['pool_bytes']} B" for d, v in per.items())
-                + f"; MR and .mapstats byte-identical to the exact host "
-                  f"path (mesh at 100 and 150 bp, CLI); launches {c}")
-    return c, max(v["working_set_gib"] for v in per.values())
+                + "; " + "; ".join(
+                    f"2x{k} bp {v['pairs_per_s']} pairs/s, pair share "
+                    f"{v['pair_share']}, {v['verify_launches']} launches"
+                    for k, v in pe_lengths.items())
+                + f"; CLI (--tp 4, one card) {cli['reads_per_s']} reads/s, "
+                f"{cli_pe['pairs_per_s']} pairs/s; per device SE / PE: "
+                + "; ".join(
+                    f"{d} tables {v['table_gib']} / {per_pe[d]['table_gib']} "
+                    f"GiB, working set {v['working_set_gib']} / "
+                    f"{per_pe[d]['working_set_gib']} GiB, {v['graphs']} / "
+                    f"{per_pe[d]['graphs']} graphs, pools {v['pool_bytes']} "
+                    f"/ {per_pe[d]['pool_bytes']} B"
+                    for d, v in per.items())
+                + f"; peak RSS {rep['peak_rss_gib']} GiB; MR and .mapstats "
+                  f"byte-identical to the exact host paths (mesh at 100 and "
+                  f"150 bp, CLI; SE and PE); launches SE {se_launches}, PE "
+                  f"{pe_launches}, {c}")
+    ws = max(v["working_set_gib"] for m in (per, per_pe) for v in m.values())
+    return ({"verify_worklist": se_launches,
+             "verify_windows": c["verify_windows"]},
+            {"verify_worklist": pe_launches,
+             "verify_windows": c["verify_windows"]}, ws)
 
 
 class EagerSteps:
@@ -2196,7 +2246,7 @@ def main() -> int:
         straddling_filler(index))
     knobs_phase(index, se_sub, pe_sub, device)
     launches_dp = dp_phase(index, device)
-    launches_hg19, ws_hg19 = hg19_phase()
+    launches_hg19, launches_hg19_pe, ws_hg19 = hg19_phase()
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
@@ -2218,7 +2268,8 @@ def main() -> int:
                 launches_mesh_pe=launches_mesh_pe,
                 launches_shifted=launches_shifted,
                 launches_shifted_mesh=launches_shifted_mesh,
-                launches_dp=launches_dp, launches_hg19=launches_hg19)
+                launches_dp=launches_dp, launches_hg19=launches_hg19,
+                launches_hg19_pe=launches_hg19_pe)
 
     def entry(name, source, nums, **extra):
         return {"name": name, "route": "cuda", "source": source,

@@ -136,9 +136,9 @@ def test_no_plan_reaches_the_entry_limit(hbm_gib):
 
 @pytest.fixture(scope="module")
 def human_tables():
-    """(genome bases, the two SE tables (converted genome, table)) of a
-    1 Mbp random genome with hg19's base composition (A = T = 0.295, C = G
-    = 0.205)."""
+    """(genome bases, the four tables (converted genome, table), SE's two
+    first) of a 1 Mbp random genome with hg19's base composition (A = T =
+    0.295, C = G = 0.205)."""
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.index.build import build_table
     from walt_tpu_torch.synth import make_genome
@@ -149,14 +149,14 @@ def human_tables():
         4, g.seq.shape[0], p=[0.295, 0.205, 0.205, 0.295]).astype(np.uint8))
     return int(g.seq.shape[0]), [
         build_table(g, conv, get_pattern("3"), verbose=False, sort_threads=1)
-        for conv in ("CT00", "CT01")]
+        for conv in ("CT00", "CT01", "GA10", "GA11")]
 
 
 @pytest.fixture(scope="module")
 def human_like(human_tables):
     """(genome bases, the two SE tables' counters) of :func:`human_tables`."""
     n, tables = human_tables
-    return n, [ht.counter for _, ht in tables]
+    return n, [ht.counter for _, ht in tables[:2]]
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 8, 16])
@@ -192,16 +192,21 @@ def test_card_shares_bound_the_runtime_split(human_like, tp):
         assert 0.45 < measured[:, 3].min() <= measured[:, 3].max() < 0.51
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_card_bytes_bound_the_placed_shards(human_tables, tp):
+@pytest.mark.parametrize("tp,nt", [(2, 2), (4, 2), (2, 4), (4, 4)],
+                         ids=["2", "4", "2-pe", "4-pe"])
+def test_card_bytes_bound_the_placed_shards(human_tables, tp, nt):
     """The heaviest card's modelled bytes are the bytes shard_and_place puts
     on it: within a few hundred bytes with the counters and the run count
-    of the placed shards, and bounded by the size-only model."""
+    of the placed shards, and bounded by the size-only model; for SE's two
+    tables and PE's four (where the A-range and T-range cards of tp=4 are
+    the heavy ones: each holds ~0.3 of one conversion's tables and ~0.5 of
+    the other's)."""
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.ops import device_index
     from walt_tpu_torch.parallel import make_mesh
 
     n, tables = human_tables
+    tables = tables[:nt]
     pattern = get_pattern("3")
     mesh = make_mesh([torch.device("cpu")] * tp, tp=tp)
     per_card, runs = np.zeros(tp, np.int64), 0
@@ -213,10 +218,13 @@ def test_card_bytes_bound_the_placed_shards(human_tables, tp):
                                for v in sh.values() if torch.is_tensor(v))
             runs += sh["uniq_words"].shape[0]
     counters = [ht.counter for _, ht in tables]
-    model = hbm_plan.card_bytes(n, 2, tp, True, runs / (2 * n),
+    model = hbm_plan.card_bytes(n, nt, tp, True, runs / (nt * n),
                                 counters=counters)
     assert per_card.max() <= model < per_card.max() + 4096
-    assert model <= hbm_plan.card_bytes(n, 2, tp, True, 1.0)
+    assert model <= hbm_plan.card_bytes(n, nt, tp, True, 1.0)
+    if (tp, nt) == (4, 4):
+        # A and T carry most of the tables' entries
+        assert set(np.argsort(per_card)[2:]) == {0, 3}
 
 
 @pytest.mark.parametrize("use_counters", [False, True])

@@ -1,8 +1,9 @@
 """tools/hg19_scale_torch.py at a toy size on the CPU: every stage runs,
-the planned tp=2 and tp=4 meshes' outputs (100 and 150 bp reads) and the
-CLI's are byte-identical to the exact host path and to walt_tpu's CLI, the
-spilled tables are checked and removed, the pre-flight refuses a run that
-cannot finish, and no report is written off the card."""
+the planned tp=2 and tp=4 meshes' outputs (100 and 150 bp reads, 2x100 and
+2x150 bp pairs) and the CLI's (SE and PE) are byte-identical to the exact
+host paths and to walt_tpu's CLI, the spilled tables are checked and
+linked into the work directory, the pre-flight refuses a run that cannot
+finish, and no report is written off the card."""
 
 import json
 import os
@@ -61,19 +62,25 @@ def _tool(tmp, hbm_gib, *extra, **env):
         env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
 
 
+#: a toy shard's entry limit: 0.6 of a table, so that, as for hg19 on an
+#: H100 (where a tp=2 shard of a human table holds ~0.71 of its entries,
+#: past 2^31), the limit refuses tp=1 and tp=2 and leaves tp=4 (~0.5)
+TOY_ENTRY_LIMIT = 600_000
+
+
 @pytest.fixture(scope="module")
 def run_tp4(tmp_path_factory):
-    """The tool at a toy size with a budget between the model's tp=4 uniq
-    card and its tp=2 key16 card (the plan's cheapest layouts on either
-    side), so it plans tp=4 with the uniq rung; GA10 and GA11 spilled."""
+    """The tool at a toy size on an H100's memory with the toy entry limit,
+    so both plans (SE's two tables, PE's four) pick tp=4 with the uniq rung
+    as hg19's do: at this size no memory budget alone does (the tp=2 SE
+    card is smaller than the tp=4 PE card).  GA10 and GA11 spilled."""
     from walt_tpu_torch import hbm_plan
 
     tmp = tmp_path_factory.mktemp("hg19_tp4")
-    lo = hbm_plan.card_bytes(TOY_BP, 2, 4, True, 0.93)
-    hi = hbm_plan.card_bytes(TOY_BP, 2, 2, False, 0.93)
-    assert lo < hi
-    out = _tool(tmp, (TorchBackend.HBM_RESERVE + (lo + hi) / 2) / 2**30,
-                "--spill-dir", str(tmp / "spill"))
+    assert (hbm_plan.card_bytes(TOY_BP, 2, 2, False, 0.93)
+            < hbm_plan.card_bytes(TOY_BP, 4, 4, False, 0.93))
+    out = _tool(tmp, 79.1, "--spill-dir", str(tmp / "spill"),
+                "--entry-limit", str(TOY_ENTRY_LIMIT))
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout), tmp
 
@@ -82,64 +89,94 @@ def test_hg19_tool_tp4_spill_two_lengths(run_tp4):
     rep, tmp = run_tp4
     work, spill = tmp / "work", tmp / "spill"
     assert rep["plan"].startswith("0.00 Gbp x 2 tables: tp=4, uniq")
-    mm = rep["mesh_map"]
-    assert (mm["tp"], mm["accel"], mm["virtual"]) == (4, "uniq", True)
-    assert set(mm["by_length"]) == {"100", "150"}
-    assert all(v["fallback_pct"] < 100 for v in mm["by_length"].values())
-    # the spilled tables were checked and are gone from both directories
+    assert rep["plan_pe"].startswith("0.00 Gbp x 4 tables: tp=4, uniq")
+    assert rep["plan_entry_limit"] == TOY_ENTRY_LIMIT
+    assert rep["heaviest_shard_entries_pe"] < TOY_ENTRY_LIMIT
+    for mm in (rep["mesh_map"], rep["mesh_map_pe"]):
+        assert (mm["tp"], mm["accel"], mm["virtual"]) == (4, "uniq", True)
+        assert set(mm["by_length"]) == {"100", "150"}
+    assert all(v["fallback_pct"] < 100
+               for v in rep["mesh_map"]["by_length"].values())
+    assert rep["mesh_map_pe"]["rungs"] == dict.fromkeys(
+        ("CT00", "CT01", "GA10", "GA11"), "uniq")
+    # both pair sets resolve most pairs on the (virtual) mesh, and no batch
+    # went to the host after a device out-of-memory error
+    for v in rep["mesh_map_pe"]["by_length"].values():
+        assert v["pair_share"] > 0.5
+        assert v["fallback_pairs"] == round(500 * (1 - v["pair_share"]))
+    for run in (list(rep["mesh_map"]["by_length"].values())
+                + list(rep["mesh_map_pe"]["by_length"].values())
+                + [rep["cli_map"], rep["cli_map_pe"]]):
+        assert run["degraded_batches"] == 0
+    assert rep["failures"] == [] and rep["k1_launches"] == 0
+    # the spilled tables were checked and stay in the spill directory,
+    # linked into the work directory under the index's table names
     assert rep["spill"]["tables"] == ["GA10", "GA11"]
+    assert rep["spill"]["links"] == ["hg19s.dbindex_GA10",
+                                     "hg19s.dbindex_GA11"]
     assert rep["spill"]["peak_gib"] > 0
-    assert not list(spill.iterdir())
+    assert sorted(p.name for p in spill.iterdir()) == rep["spill"]["links"]
     assert sorted(p.name for p in work.glob("hg19s.dbindex_*")) == [
-        "hg19s.dbindex_CT00", "hg19s.dbindex_CT01"]
+        "hg19s.dbindex_CT00", "hg19s.dbindex_CT01", "hg19s.dbindex_GA10",
+        "hg19s.dbindex_GA11"]
+    for name in rep["spill"]["links"]:
+        assert (work / name).is_symlink()
+        assert (work / name).resolve() == (spill / name).resolve()
     assert all(t["sha_ok"] for t in rep["round_trip"].values())
     assert len(rep["round_trip"]) == 4
     assert {c: t["dir"] for c, t in rep["tables"].items()} == {
         "CT00": "work", "CT01": "work", "GA10": "spill", "GA11": "spill"}
-    # every byte the tool wrote under the work directory
+    # every byte the tool wrote: the work directory's files (a link as
+    # itself) and, the spill directory being on the same disk here, its
+    # tables
     assert rep["disk_written_bytes"] == sum(
-        p.stat().st_size for p in work.rglob("*") if p.is_file())
+        p.lstat().st_size for p in list(work.rglob("*")) + list(
+            spill.rglob("*")) if not p.is_dir())
     assert rep["disk_written_gib"] == round(rep["disk_written_bytes"] / 2**30,
                                             2)
-    # host, mesh (both lengths) and CLI bytes are equal
-    assert set(rep["parities"]) == {"mesh_100", "mesh_150", "cli_100"}
+    # host, mesh (both lengths) and CLI bytes are equal, SE and PE
+    assert set(rep["parities"]) == {"mesh_100", "mesh_150", "cli_100",
+                                    "mesh_pe_100", "mesh_pe_150",
+                                    "cli_pe_100"}
     assert all(all(p.values()) for p in rep["parities"].values())
-    assert rep["cli_map"]["rc"] == 0
-    assert rep["cli_map"]["stand_ins"] == ["hg19s.dbindex_GA10",
-                                           "hg19s.dbindex_GA11"]
+    assert rep["cli_map"]["rc"] == 0 and rep["cli_map_pe"]["rc"] == 0
+    assert rep["cli_map_pe"]["flags"] == ["--tp", "4"]
     assert rep["host_map"]["100"]["unique"] > 0.9 * 500
     assert rep["host_map"]["150"]["unique"] > 0.9 * 500
+    assert rep["host_map_pe"]["100"]["unique"] > 0.9 * 500
+    assert rep["host_map_pe"]["150"]["unique"] > 0.8 * 500
     assert not (tmp / "report.json").exists()
 
 
 def test_hg19_port_equals_walt_tpu_cli(run_tp4):
-    """The port's mesh and CLI outputs equal walt_tpu's CLI on its numpy
-    backend (the host oracle) on the same index and reads.  walt_tpu's CLI
-    checks all four table files like the port's; SE reads CT00 and CT01,
-    so the spilled two stand in as empty files here."""
+    """The port's SE and PE mesh and CLI outputs equal walt_tpu's CLI on its
+    numpy backend (the host oracle) on the same index, reads and pairs;
+    walt_tpu's CLI finds GA10 and GA11 through the work directory's
+    links."""
     _, tmp = run_tp4
     work = tmp / "work"
     index = str(work / "hg19s.dbindex")
-    stand_ins = [work / f"hg19s.dbindex_{c}" for c in ("GA10", "GA11")]
-    try:
-        for p in stand_ins:
-            p.touch()
-        for fq, ours in (("reads.fastq", ("out_mesh.mr", "out_cli.mr")),
-                         ("reads_150.fastq", ("out_mesh_150.mr",))):
-            ref = str(tmp / f"jax_{fq}.mr")
-            out = subprocess.run(
-                [sys.executable, "-m", "walt_tpu.cli", "-i", index, "-r",
-                 str(work / fq), "-o", ref, "--backend", "numpy"],
-                capture_output=True, text=True, timeout=600, cwd=ROOT,
-                env=dict(os.environ, JAX_PLATFORMS="cpu"))
-            assert out.returncode == 0, out.stderr[-2000:]
-            for name in ours:
-                for suffix in ("", ".mapstats"):
-                    assert (work / (name + suffix)).read_bytes() == open(
-                        ref + suffix, "rb").read(), name + suffix
-    finally:
-        for p in stand_ins:
-            p.unlink()
+    runs = (
+        (["-r", "reads.fastq"], ("out_mesh.mr", "out_cli.mr")),
+        (["-r", "reads_150.fastq"], ("out_mesh_150.mr",)),
+        (["-1", "reads_1.fastq", "-2", "reads_2.fastq"],
+         ("out_mesh_pe.mr", "out_cli_pe.mr")),
+        (["-1", "reads_150_1.fastq", "-2", "reads_150_2.fastq"],
+         ("out_mesh_pe_150.mr",)),
+    )
+    for reads, ours in runs:
+        ref = str(tmp / f"jax_{reads[1]}.mr")
+        args = [a if a.startswith("-") else str(work / a) for a in reads]
+        out = subprocess.run(
+            [sys.executable, "-m", "walt_tpu.cli", "-i", index, *args, "-o",
+             ref, "--backend", "numpy"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert out.returncode == 0, out.stderr[-2000:]
+        for name in ours:
+            for suffix in ("", ".mapstats"):
+                assert (work / (name + suffix)).read_bytes() == open(
+                    ref + suffix, "rb").read(), name + suffix
 
 
 # ---- pre-flight ------------------------------------------------------------
@@ -163,37 +200,73 @@ def _load_tool():
 FOUR_CARDS = dict(n_reads=50_000, spill=True, disk_limit=45 * G,
                   work_free=400 * G, spill_free=192 * G,
                   mem_available=380 * G, n_cards=4, card_bytes=int(79.1 * G))
+SE_CARDS = "the 2-table plan needs tp=4 and"
+PE_CARDS = "the 4-table plan needs tp=4 and"
 
 
 @pytest.mark.parametrize("change,refusal", [
     ({}, None),
-    # one card that holds every shard: a virtual mesh is allowed
-    (dict(n_cards=1), None),
+    # one card that holds every shard of both plans: a virtual mesh is
+    # allowed
+    (dict(n_cards=1, card_bytes=160 * G), None),
     (dict(spill=False), "to disk, past the 45.00 GiB limit"),
     (dict(work_free=20 * G), "the work directory needs"),
     (dict(spill_free=8 * G), "the spill directory needs"),
     (dict(mem_available=64 * G), "host memory: the run needs"),
-    (dict(n_cards=1, card_bytes=40 * G), "the plan needs tp=4 and 1 card"),
-    (dict(n_cards=2, card_bytes=48 * G), "the plan needs tp=4 and 2 card"),
+    (dict(n_cards=1, card_bytes=40 * G), (SE_CARDS + " 1 card",
+                                          PE_CARDS + " 1 card")),
+    (dict(n_cards=2, card_bytes=48 * G), (SE_CARDS + " 2 card",
+                                          PE_CARDS + " 2 card")),
+    # PE: an H100 holds every SE shard, not PE's four tables
+    (dict(n_cards=1), PE_CARDS + " 1 card"),
+    # PE: the spill directory holds GA10 and GA11 to the end, not one
+    (dict(spill_free=20 * G), "GiB for 2 tables, 20.00 GiB free"),
+    # PE: the builds' peak fits, the four cached tables' does not
+    (dict(mem_available=110 * G), "host memory: the run needs 115.61 GiB"),
 ])
 def test_preflight(change, refusal):
-    """hg19 SE on an H100's memory plans tp=4; the pre-flight refuses each
-    resource that cannot hold the run, with its numbers."""
+    """hg19 SE and PE on an H100's memory plan tp=4; the pre-flight refuses
+    each resource that cannot hold the run, with its numbers, once per plan
+    a card check refuses."""
     from walt_tpu_torch import hbm_plan
 
     tool = _load_tool()
-    plan = hbm_plan.plan_tables(HG19, 2, int(79.1 * G), uniq_ratio=0.93)
-    assert plan.tp == 4
-    needs, problems = tool.preflight(HG19, plan, **dict(FOUR_CARDS, **change))
+    plans = [hbm_plan.plan_tables(HG19, n, int(79.1 * G), uniq_ratio=0.93)
+             for n in (2, 4)]
+    assert [p.tp for p in plans] == [4, 4]
+    needs, problems = tool.preflight(HG19, plans,
+                                     **dict(FOUR_CARDS, **change))
     if refusal is None:
         assert problems == []
     else:
-        assert len(problems) == 1 and refusal in problems[0], problems
-        assert "GiB" in problems[0]
-    # FASTA + CT00 + CT01 on disk (~32 GiB), one table (~14.5 GiB) in RAM
+        want = (refusal,) if isinstance(refusal, str) else refusal
+        assert len(problems) == len(want), problems
+        for w, p in zip(want, problems):
+            assert w in p and "GiB" in p, problems
+    # FASTA + CT00 + CT01 on disk (~32 GiB), GA10 + GA11 (~28.9 GiB) in RAM
     spill = change.get("spill", True)
     assert 31 < needs["disk_gib"] < 33 if spill else needs["disk_gib"] > 60
-    assert 14 < needs["spill_gib"] < 15 if spill else needs["spill_gib"] == 0
+    assert 28 < needs["spill_gib"] < 30 if spill else needs["spill_gib"] == 0
+    # the builds' peak with GA10 spilled; the mapping stages' four cached
+    # tables with both spilled
+    if spill:
+        assert 83 < needs["host_ram_build_gib"] < 84
+        assert needs["host_ram_gib"] == needs["host_ram_maps_gib"] > 115
+
+
+def test_tree_bytes_counts_a_link_as_itself(tmp_path):
+    """The disk limit counts bytes written: a table linked into the work
+    directory from a RAM spill directory adds its link, not the table."""
+    tool = _load_tool()
+    work, spill = tmp_path / "work", tmp_path / "spill"
+    work.mkdir()
+    spill.mkdir()
+    (work / "t_CT00").write_bytes(b"x" * 1000)
+    (spill / "t_GA10").write_bytes(b"y" * 5000)
+    (work / "t_GA10").symlink_to(spill / "t_GA10")
+    link = len(str(spill / "t_GA10"))
+    assert tool.tree_bytes(str(work)) == 1000 + link
+    assert tool.tree_bytes(str(spill)) == 5000
 
 
 def test_preflight_refusal_exits_before_stage_1(tmp_path):

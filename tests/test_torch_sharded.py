@@ -15,7 +15,8 @@ equality throughout, fallback bits included:
 - ``merge_gathered`` and ``combine_summaries`` on random inputs;
 - ``map_strand_sharded``, ``map_single_end_sharded`` and
   ``map_mate_sharded`` (on chunks whose flat streams do not spill: F1 is
-  steered around).
+  steered around); the mate step on both mates' tables and at tp=4 too,
+  on dp=2 x tp=4 meshes of the same 8 devices.
 """
 
 import jax.numpy as jnp
@@ -340,23 +341,43 @@ def test_map_single_end_sharded_matches_jax(synth, mesh8, tmesh):
                                       _np(want).astype(np.int64))
 
 
-def test_map_mate_sharded_matches_jax(synth, mesh8, tmesh):
+@pytest.fixture(scope="module")
+def meshes_tp4():
+    """walt_tpu's 8 virtual devices as dp=2 x tp=4, and the port's."""
+    import jax
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 (virtual) JAX devices")
+    return (jsh.make_mesh(jax.devices()[:8], tp=4),
+            tsh.make_mesh(["cpu"] * 8, tp=4))
+
+
+@pytest.mark.parametrize("mate", ["ga", "ct"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_map_mate_sharded_matches_jax(synth, mesh8, tmesh, meshes_tp4, tp,
+                                      mate):
+    """Mate 2 on the G->A tables and mate 1 on the C->T tables, at tp=2
+    (dp=4) and at tp=4 (dp=2, the hg19 PE layout)."""
     from walt_tpu_torch.ops import pe_map as tpe
 
-    dts, _, (preads, lens) = synth
-    jt, tt, bits, ubits = _placed(dts, ["GA10", "GA11"], mesh8, tmesh,
-                                  "uniq")
-    kw = dict(pattern_name="3", ag_wildcard=True, search_bits=bits,
+    jmesh, pmesh = (mesh8, tmesh) if tp == 2 else meshes_tp4
+    dts, ct_reads, ga_reads = synth
+    ag = mate == "ga"
+    preads, lens = ga_reads if ag else ct_reads
+    convs = ["GA10", "GA11"] if ag else ["CT00", "CT01"]
+    jt, tt, bits, ubits = _placed(dts, convs, jmesh, pmesh, "uniq")
+    kw = dict(pattern_name="3", ag_wildcard=ag, search_bits=bits,
               verify_slab=tpe.VERIFY_SLAB, cand_slab=C,
               wl_factor=tpe.WL_FACTOR, flat_factor=tpe.FLAT_FACTOR,
               uniq_bits=ubits)
     jmeta, jflat = jsh.map_mate_sharded(
         jnp.asarray(preads), jnp.asarray(lens), jnp.int32(5000),
-        jnp.int32(6), tuple(jt), mesh=mesh8, **kw)
+        jnp.int32(6), tuple(jt), mesh=jmesh, **kw)
     tmeta, tflat = tsh.map_mate_sharded(
-        _i32(preads), torch.from_numpy(lens), 5000, 6, tt, mesh=tmesh, **kw)
+        _i32(preads), torch.from_numpy(lens), 5000, 6, tt, mesh=pmesh, **kw)
     jmeta = np.asarray(jmeta)
-    T, dp = 2, 4
+    T, dp = pmesh.shape["tp"], pmesh.shape["dp"]
+    assert (T, dp) == (jmesh.shape["tp"], jmesh.shape["dp"]) == (tp, 8 // tp)
     assert jmeta.shape == (T, B) and np.asarray(jflat).shape == (
         T, tpe.FLAT_FACTOR * B, 2)
     # F1 steered around: no dp segment's stream spills its capacity

@@ -8,6 +8,11 @@ output stays byte-identical and the run completes (round-2 verdict next #9).
 
 from __future__ import annotations
 
+#: batches each driver ("se", "pe") has mapped on the exact host path after
+#: a device out-of-memory error, in this process: output stays identical,
+#: so a run that must show the device did its work checks these
+degraded_batches = {"se": 0, "pe": 0}
+
 
 class HbmBudgetError(RuntimeError):
     """A device table cannot fit the HBM budget even fully degraded."""

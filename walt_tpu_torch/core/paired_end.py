@@ -287,7 +287,9 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
     def map_pair(b1, b2):
         """Device map of both mates: all dispatches in flight before the
         first fetch (fused strand programs, ops/pe_map)."""
-        from walt_tpu_torch.core.errors import is_oom_error
+        from walt_tpu_torch.core.errors import (
+            degraded_batches, is_oom_error,
+        )
 
         with perf.stage("device_map"):
             lens_by_mate = [batch.packed()[1] for batch in (b1, b2)]
@@ -309,6 +311,7 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
                     raise
                 # device HBM exhausted: route the whole batch to the exact
                 # host path (byte-identical output) and keep going
+                degraded_batches["pe"] += 1
                 print(f"[waltx] device OOM, host-mapping batch of "
                       f"{len(b1)} pairs: {e}", file=sys.stderr)
                 n_ = len(b1)

@@ -103,7 +103,9 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
         from concurrent.futures import ThreadPoolExecutor
 
         def map_batch(batch):
-            from walt_tpu_torch.core.errors import is_oom_error
+            from walt_tpu_torch.core.errors import (
+                degraded_batches, is_oom_error,
+            )
 
             with perf.stage("device_map"):
                 codes, lens = batch.packed()
@@ -117,6 +119,7 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
                         raise
                     # device HBM exhausted: remap the whole batch on the
                     # exact host path (byte-identical output) and keep going
+                    degraded_batches["se"] += 1
                     print(f"[waltx] device OOM, host-mapping batch of "
                           f"{len(lens)} reads: {e}", file=sys.stderr)
                     n_ = codes.shape[0]

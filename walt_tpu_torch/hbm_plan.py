@@ -199,7 +199,8 @@ def card_bytes(genome_bp: int, n_tables: int, tp: int, uniq: bool = True,
 def plan_tables(genome_bp: int, n_tables: int = 2,
                 hbm_bytes: int | None = None, reserve: int | None = None,
                 uniq_ratio: float = 1.0, b_small: bool = False,
-                max_tp: int = 64, counters=None) -> TablePlan:
+                max_tp: int = 64, counters=None,
+                entry_limit: int | None = None) -> TablePlan:
     """Smallest tp width (power of two) that fits, preferring uniq.
 
     ``hbm_bytes``: each card's memory (default :func:`device_memory` of the
@@ -208,8 +209,10 @@ def plan_tables(genome_bp: int, n_tables: int = 2,
     uses -b below the verify slabs, so the exact_b path needs all 3 packed
     key words (12n/table) regardless of uniq.  A width whose heaviest shard
     (:func:`heaviest_shard` of ``counters``, else of ``genome_bp``) would
-    hold ``pipeline.ENTRY_LIMIT`` entries or more is skipped.  A width fits
-    when its heaviest card (:func:`card_bytes`) does.
+    hold ``entry_limit`` entries or more is skipped (default
+    ``pipeline.ENTRY_LIMIT``; a smaller one rehearses, on a small genome,
+    a deployment whose tp the limit decides, as hg19's on an 80 GB card).
+    A width fits when its heaviest card (:func:`card_bytes`) does.
     """
     if hbm_bytes is None:
         hbm_bytes = device_memory()
@@ -217,12 +220,14 @@ def plan_tables(genome_bp: int, n_tables: int = 2,
         from walt_tpu_torch.core.torch_backend import TorchBackend
 
         reserve = TorchBackend.HBM_RESERVE
+    if entry_limit is None:
+        entry_limit = pipeline.ENTRY_LIMIT
     base, uniq, kw16 = table_bytes(genome_bp, uniq_ratio)
     budget = hbm_bytes - reserve
 
     tp = 1
     while tp <= max_tp:
-        if heaviest_shard(genome_bp, tp, counters) >= pipeline.ENTRY_LIMIT:
+        if heaviest_shard(genome_bp, tp, counters) >= entry_limit:
             tp *= 2
             continue
         for use_uniq, accel in ((True, uniq), (False, kw16)):

@@ -118,9 +118,10 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     and of the eager step, their idle shares, and the cached graphs and
     their pools' bytes per device.
 
-18. hg19 tool (last, ~1-2 min): ``tools/hg19_scale_torch.py`` on card 0
-    at HG19_BP bases, HG19_READS reads of 100 bp and of 150 bp and as many
-    pairs of 2x100 and 2x150 bp, its plans under HG19_ENTRY_LIMIT (a
+18. hg19 tool (after phase 16, ~1-2 min): ``tools/hg19_scale_torch.py``
+    on card 0 at HG19_BP bases, HG19_READS reads of 100 bp and of 150 bp
+    and as many pairs of 2x100 and 2x150 bp, its plans under
+    HG19_ENTRY_LIMIT (a
     shard's entry limit scaled to this genome, which refuses tp=1 and 2
     as 2^31 does hg19's) and a memory budget under which both the SE plan
     (two tables) and the PE plan (four) split them tp=4 with key16 (a
@@ -135,13 +136,35 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     launches, the CLIs' rates, and per device SE / PE the tables, working
     set, graphs and pool bytes.
 
+19. seed patterns 5 and 7 (last, the short-read deployment): phase 4's
+    genome indexed under pattern 7 by ``python -m walt_tpu_torch.cli index
+    --seed-pattern 7`` (build time and each file's sha256 printed, every
+    entry inside the genome), and a P5_BP-base repetitive genome (seed 43)
+    under pattern 5.  Pattern 7: P7_READS reads sampled at READ_LEN (seed
+    13) with their 3' ends trimmed to 23-100 bp (numpy seed 19) and
+    P7_SHORT reads of 15-22 bp, which must count as too short; P7_PAIRS
+    pairs of 2x50 bp (fragments 100-300 bp, seed 17).  Pattern 5: P5_READS
+    x 100 bp reads and P5_PAIRS pairs of 2x100 bp.  The CLI on the card,
+    pattern 7 SE with ``-a -u`` and with ``-A -sam``, PE default and
+    ``-sam``, pattern 5 SE and PE default: every output file byte-identical
+    to the exact host path with the same flags, each run launching the
+    fused stage and never K1, with no batch mapped on the host after a
+    device OOM and a device-resolved share above 0; the card's
+    ``map_single_end`` arrays equal a CPU TorchBackend's on the first
+    P7_PARITY_READS pattern-7 reads; then the graph-pool watch: one backend
+    maps WATCH_READS reads of each WATCH_LENGTHS length under pattern 7,
+    then pattern 3, printing its graphs and pool bytes after each, and
+    fails when its working set passes HBM_RESERVE.  Prints per run the CLI
+    rate with and without the table setup, the shares (SE by length
+    class), launches, graphs and pool bytes.
+
 The backends run every device step as a CUDA graph replay; the kernel's
 launch counters count each replay's captured launches, so a count is the
-number of times the kernel ran.  Phases 5, 7, 9, 10 and 18 print the working
-set, the peak reserved device memory less the resident tables' bytes and
-less what earlier phases still hold (the graphs' pools included); the
-largest sets ``TorchBackend.HBM_RESERVE``, and the script fails if one
-exceeds it.
+number of times the kernel ran.  Phases 5, 7, 9, 10, 18 and 19 print the
+working set, the peak reserved device memory less the resident tables'
+bytes and less what earlier phases still hold (the graphs' pools
+included); the largest sets ``TorchBackend.HBM_RESERVE``, and the script
+fails if one exceeds it.
 
 Each phase that drives the main path sets every kernel's launch count to
 0 just before and reads the counts just after; it fails unless the fused
@@ -155,7 +178,10 @@ CLI runs, ``launches_mesh`` and ``launches_mesh_pe`` those of phase 11's SE
 and PE runs, ``launches_shifted`` and ``launches_shifted_mesh`` those of
 phase 13's CLI run and mesh runs, ``launches_dp`` those of phase 16,
 ``launches_hg19`` and ``launches_hg19_pe`` those of phase 18's SE and PE
-runs (mesh and CLI);
+runs (mesh and CLI), ``launches_p7_se_au``, ``launches_p7_se_Asam``,
+``launches_p7_pe``, ``launches_p7_pe_sam``, ``launches_p5_se``,
+``launches_p5_pe`` and ``launches_watch`` those of phase 19's CLI runs
+and its graph-pool watch;
 ``chain_ms`` is the replaced chain's device time) and one JSON object
 ``{"ok": true, "device": {...}}``.
 """
@@ -471,8 +497,9 @@ def verify_inputs(rng, M: int, W: int, Wg: int, device):
 
 def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
                  n_chroms: int = 4, n_index: int = 1 << 16,
-                 seeds=(0, 1, 2), key16: bool = False, check: bool = True,
-                 valid_share: float = 0.85, straddle: bool = False):
+                 seeds=None, key16: bool = False, check: bool = True,
+                 valid_share: float = 0.85, straddle: bool = False,
+                 pattern: str = "3"):
     """Inputs of ``verify.verify_worklist``: a synthetic worklist of M rows
     over B reads of W words, in read order (valid rows first, then the
     invalid tail on read 0, as the pipeline's compaction leaves them),
@@ -481,10 +508,13 @@ def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
     at the genome start), at chromosome ends (``ok_tail``), at the genome
     end (window clamp) and past it; half the reads copy the genome window of
     their first row with a few mismatches, so ``mm <= max_mm``, the
-    verify_skip lanes (base 70 on shift 2) and the cared check all decide
-    some rows; lengths run from 0 (reads shorter than 38 bp included) to
-    16 W.  ``check``: the window cared check runs (``key16``: from cared
-    position kw + 8).  ``straddle``: the random words start at base
+    verify_skip lanes (base 70 on shift 2, pattern 3's) and the cared
+    check all decide some rows; lengths run from 0 (reads shorter than the
+    pattern's minimum included) to 16 W, 40% of them min(100, 16 W) (a
+    read that fills its W words when W < 7).  ``pattern``: the seed
+    pattern's tables (``seeds``: its shifts, all of them by default).
+    ``check``: the window cared check runs (``key16``: from cared position
+    kw + 8).  ``straddle``: the random words start at base
     2^31 - 8 Wg behind zero words, so index values and chromosome starts
     lie on both sides of 2^31 (the first chromosome spans the zeros).
     Returns (args, kwargs) of the call."""
@@ -494,7 +524,8 @@ def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.ops import packing, pipeline
 
-    pattern = get_pattern("3")
+    pattern = get_pattern(pattern)
+    seeds = tuple(range(pattern.pattern_len)) if seeds is None else seeds
     plen, S = pattern.pattern_len, len(seeds)
     G = Wg * 16 - 32  # genome bases; the last words clamp windows
     base = (1 << 31) - 16 * (Wg // 2) if straddle else 0
@@ -536,7 +567,7 @@ def stage_inputs(rng, M: int, B: int, W: int, Wg: int, device, *,
     lens = rng.integers(0, Lmax + 1, B)
     lens[rng.random(B) < 0.4] = min(100, Lmax)
     short = rng.random(B) < 0.1
-    lens[short] = rng.integers(0, 38, int(short.sum()))
+    lens[short] = rng.integers(0, pattern.min_read_len, int(short.sum()))
     repeats = np.minimum((lens - plen + 1) // plen, pattern.max_repeats())
 
     conv = rng.integers(0, 1 << 32, (B, W), dtype=np.uint32).astype(np.int64)
@@ -637,7 +668,11 @@ def check_verify_kernel(device, Wg: int):
 #: instance), more chromosome starts than shared memory holds (2048),
 #: reads too sparse for the staged conv range, a ragged last block; then
 #: genomes whose index values and chromosome starts pass 2^31, with one
-#: chromosome or with hg19's 93 contigs, at the SE shape and at edges
+#: chromosome or with hg19's 93 contigs, at the SE shape and at edges; then
+#: seed patterns 5 (S = 5, cared_weight 2) and 7 (S = 7, cared_weight 4,
+#: exit1 seed 4), neither with verify_skip triples: pattern 5 at W = 7,
+#: pattern 7 at W = 2 and 3 (23-48 bp reads, many filling their words)
+#: and at W = 7, with and without the window cared check
 STAGE_SHAPES = [
     (MAIN_M, MAIN_B, MAIN_W, {}), (PE_M, MAIN_B, MAIN_W, {}),
     (5003, 3000, 7, dict(key16=True)), (5003, 3000, 7, dict(check=False)),
@@ -650,6 +685,12 @@ STAGE_SHAPES = [
     (5003, 3000, 7, dict(straddle=True, n_chroms=1)),
     (5003, 3000, 7, dict(straddle=True, n_chroms=93, key16=True)),
     (4097, 2000, 17, dict(straddle=True, n_chroms=93)),
+    (5003, 3000, 7, dict(pattern="5")),
+    (5003, 3000, 7, dict(pattern="5", check=False)),
+    (5003, 3000, 2, dict(pattern="7")), (5003, 3000, 3, dict(pattern="7")),
+    (5003, 3000, 7, dict(pattern="7")),
+    (5003, 3000, 7, dict(pattern="7", check=False)),
+    (MAIN_M, MAIN_B, MAIN_W, dict(pattern="7")),
 ]
 
 
@@ -685,9 +726,9 @@ def check_stage_kernel(device, Wg: int):
         if opts.get("straddle"):
             past += int((got[0][got[2]] >= 1 << 31).sum())
         elif big:
-            main[M] = (args, kw)
+            main[opts.get("pattern", "3"), M] = (args, kw)
         del args, got, want
-    args, kw = main[MAIN_M]
+    args, kw = main["3", MAIN_M]
     kern = lambda: verify.verify_worklist(*args, **kw)  # noqa: E731
     chain = lambda: verify.verify_worklist_reference(*args, **kw)  # noqa: E731
     plain = lambda: verify.verify_worklist_reference(  # noqa: E731
@@ -697,9 +738,15 @@ def check_stage_kernel(device, Wg: int):
     p1 = device_profile(plain)
     wc1, wk1, wk2, wc2 = (cuda_ms(f) for f in (chain, kern, kern, chain))
     wp1 = cuda_ms(plain)
-    pe_args, pe_kw = main[PE_M]
+    pe_args, pe_kw = main["3", PE_M]
     pe_k = device_ms(lambda: verify.verify_worklist(*pe_args, **pe_kw),
                      events=1)
+    p7_args, p7_kw = main["7", MAIN_M]
+    p7_k = device_ms(lambda: verify.verify_worklist(*p7_args, **p7_kw),
+                     events=1)
+    p7_p = device_ms(lambda: verify.verify_worklist_reference(
+        *p7_args, **p7_kw, windows=verify.verify_windows_reference))
+    p7_b_ms, p7_b_by = stage_bound(p7_args, p7_kw)
     pe_c = device_ms(lambda: verify.verify_worklist_reference(*pe_args,
                                                               **pe_kw))
     b_ms, b_by = stage_bound(args, kw)
@@ -707,9 +754,10 @@ def check_stage_kernel(device, Wg: int):
     valid = float(args[3].float().mean())
     say("kernel", f"verify_worklist == plain on {len(STAGE_SHAPES)} shapes "
                   f"(SE, PE, key16, exact_b, seed 0, W 1/3/7/13/16/17/63, "
-                  f"3000 chromosomes, sparse reads, ragged block, and "
+                  f"3000 chromosomes, sparse reads, ragged block, "
                   f"genomes past 2^31 with 1 or 93 chromosomes: {past} kept "
-                  f"windows at or past 2^31); at "
+                  f"windows at or past 2^31, and seed patterns 5 and 7 at "
+                  f"W 2/3/7, the SE shape included); at "
                   f"M={MAIN_M} B={MAIN_B} W={MAIN_W} ({valid:.2f} valid): "
                   f"device time (torch.profiler) kernel "
                   f"{k1[0] * 1e3:.1f}/{k2[0] * 1e3:.1f} us in "
@@ -723,6 +771,9 @@ def check_stage_kernel(device, Wg: int):
                   f"kernel at {100 * b_ms / ((k1[0] + k2[0]) / 2):.0f}% of "
                   f"it; at the PE shape M={PE_M}: kernel {pe_k * 1e3:.1f} us, "
                   f"chain {pe_c * 1e3:.1f} us, bound {pe_b_ms * 1e3:.2f} us; "
+                  f"at the SE shape under pattern 7 (S = 7): kernel "
+                  f"{p7_k * 1e3:.1f} us, plain {p7_p * 1e3:.1f} us, bound "
+                  f"{p7_b_ms * 1e3:.2f} us ({p7_b_by}); "
                   f"profiling attempts per window "
                   f"{profile_attempts[window0:]}")
     if not past:
@@ -732,7 +783,8 @@ def check_stage_kernel(device, Wg: int):
                 plain_wall_ms=wp1, chain_wall_ms=(wc1 + wc2) / 2,
                 bound_ms=b_ms, bound_by=b_by, events=k1[1],
                 chain_events=c1[1], pe_ms=pe_k, pe_chain_ms=pe_c,
-                pe_bound_ms=pe_b_ms)
+                pe_bound_ms=pe_b_ms, p7_ms=p7_k, p7_plain_ms=p7_p,
+                p7_bound_ms=p7_b_ms)
 
 
 def build_data(data_dir: str, n_bases: int, n_reads: int, n_pairs: int,
@@ -2181,6 +2233,370 @@ def graph_phase(single, mesh_b, index, fastq, pe) -> None:
                   f"s: " + "; ".join(lines))
 
 
+#: phase 19, the short-read deployment: pattern 7 on phase 4's genome (SE
+#: reads sampled at READ_LEN and trimmed, too-short reads, 2x50 bp pairs),
+#: pattern 5 on a genome of its own (SE and 2x100 bp pairs)
+P7_READS, P7_SHORT, P7_PAIRS, P7_PAIR_LEN = 500_000, 5_000, 200_000, 50
+P5_BP, P5_READS, P5_PAIRS = 32_000_000, 250_000, 100_000
+#: phase 19's card-against-CPU check: the first reads of the pattern-7 set
+P7_PARITY_READS = 16_384
+#: phase 19's graph pool watch: reads per length, and the lengths
+WATCH_READS = 20_000
+WATCH_LENGTHS = (25, 36, 50, 75, 100, 125, 150)
+#: SE length classes of phase 19's shares: too short under pattern 7, hash
+#: keys past a 23-24 bp read's end, whole key words, and past
+#: key_weight + 48 cared positions (F8: every such read takes the host)
+LENGTH_CLASSES = ((15, 22), (23, 37), (38, 117), (118, 150))
+
+
+def sha256_file(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def pattern_index(fasta: str, index: str, name: str):
+    """``python -m walt_tpu_torch.cli index --seed-pattern name`` of
+    ``fasta`` into ``index``.  Returns (build seconds, sha256 per file),
+    after checking that every table's entries lie inside the genome."""
+    from walt_tpu_torch import cli
+    from walt_tpu_torch.index import io_walt
+
+    os.makedirs(os.path.dirname(index), exist_ok=True)
+    rc, secs = timed(lambda: cli.main(["index", "-c", fasta, "-o", index,
+                                       "--seed-pattern", name]))
+    if rc != 0:
+        raise AssertionError(f"the pattern-{name} index build failed")
+    gm, _ = io_walt.read_head(index)
+    n_bp = int(gm.start_index[-1])
+    for s in io_walt.SUFFIXES:
+        _, ht = io_walt.read_table_cached(index + s, gm)
+        top = int(ht.index.max(initial=0))
+        if top >= n_bp:
+            raise AssertionError(f"pattern {name} {s}: entry {top} past the "
+                                 f"genome's {n_bp} bases")
+    return secs, {s or "head": sha256_file(index + s)
+                  for s in ("",) + io_walt.SUFFIXES}
+
+
+def pattern_outputs(out: str, flags, pe: bool) -> list:
+    """The files one run writes (the CLI's ``-a`` / ``-u`` side files)."""
+    files = [out, out + ".mapstats"]
+    if "-sam" not in flags:
+        for m in ("_1", "_2") if pe else ("",):
+            files += [f"{out}{m}_unmapped"] if "-u" in flags else []
+            files += [f"{out}{m}_ambiguous"] if "-a" in flags else []
+    return files
+
+
+class SetupClock(Recorder):
+    """A :class:`Recorder` that also keeps each SE call's read lengths and
+    times the backend's table setup (``TorchBackend._device_table``: host
+    prep, upload and the device builds) and the time of its first mapping
+    call, so a run's wall time splits into setup and mapping."""
+
+    def watch(self, backend):
+        import numpy as np
+
+        super().watch(backend)
+        self.lens, self.setup_s, self.first = [], 0.0, None
+        table, se = backend._device_table, backend.map_single_end
+        begin = getattr(backend, "map_mate_slabs_begin", None)
+
+        def timed_table(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return table(*a, **k)
+            finally:
+                self.setup_s += time.perf_counter() - t0
+
+        def first(fn):
+            def call(*a, **k):
+                if self.first is None:
+                    self.first = time.perf_counter()
+                return fn(*a, **k)
+            return call
+
+        def se_call(codes, lens, *a, **k):
+            self.lens.append(np.asarray(lens))
+            return se(codes, lens, *a, **k)
+
+        backend._device_table = timed_table
+        backend.map_single_end = first(se_call)
+        if begin is not None:
+            backend.map_mate_slabs_begin = first(begin)
+        return backend
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if self.backend is not None:
+            for name in ("_device_table", "map_mate_slabs_begin"):
+                self.backend.__dict__.pop(name, None)
+
+    def class_shares(self, classes=LENGTH_CLASSES) -> dict:
+        """Device-resolved SE share per read-length class ("-" when the run
+        had no read of the class)."""
+        import numpy as np
+
+        lens = np.concatenate(self.lens)
+        ok = ~np.concatenate([o[4] for o in self.se])
+        out = {}
+        for lo, hi in classes:
+            m = (lens >= lo) & (lens <= hi)
+            out[f"{lo}-{hi}"] = round(float(ok[m].mean()), 4) if m.any() \
+                else "-"
+        return out
+
+
+def pattern_run(index: str, reads, work: str, tag: str, name: str, flags,
+                n: int, device) -> dict:
+    """One CLI run on the card under ``--seed-pattern name`` with ``flags``
+    against the exact host path with the same flags (``reads``: a FASTQ
+    path, or the two of a pair), every output file byte for byte.  Fails
+    unless the run launched the fused stage and never K1, mapped no batch
+    on the host after a device OOM, and resolved a share above 0."""
+    from walt_tpu_torch import cli
+    from walt_tpu_torch.core import errors
+    from walt_tpu_torch.core.paired_end import process_paired_end
+    from walt_tpu_torch.core.single_end import process_single_end
+
+    pe = isinstance(reads, tuple)
+    out, ref = (os.path.join(work, f"{tag}{k}.mr") for k in ("", "_exact"))
+    argv = ["-i", index, *(["-1", reads[0], "-2", reads[1]] if pe
+                           else ["-r", reads]),
+            "-o", out, "--seed-pattern", name, "--device", device.type,
+            *flags]
+    for k in errors.degraded_batches:
+        errors.degraded_batches[k] = 0
+    zero_counts()
+    t0 = time.perf_counter()
+    with SetupClock() as rec:
+        if cli.main(argv) != 0:
+            raise AssertionError(f"phase 19 {tag}: the CLI run failed")
+    t1 = time.perf_counter()
+    launches, degraded = counts(), dict(errors.degraded_batches)
+    share = rec.pe_share() if pe else rec.se_share()
+    # wall from the first mapping call, less the tables' device setup
+    mapping = t1 - rec.first - rec.setup_s
+    classes = None if pe else rec.class_shares()
+    graphs = rec.backend.graphs.stats()
+    rec.backend.free_tables()
+    del rec
+
+    for f in pattern_outputs(ref, flags, pe):
+        open(f, "w").close()
+    common = dict(pattern_name=name, ambiguous="-a" in flags,
+                  unmapped="-u" in flags, sam="-sam" in flags)
+    t2 = time.perf_counter()
+    if pe:
+        process_paired_end(index, reads[0], reads[1], ref,
+                           backend=AllFallbackPE(), **common)
+    else:
+        process_single_end(index, reads, ref, backend=AllFallback(),
+                           ag_wildcard="-A" in flags, **common)
+    exact_s = time.perf_counter() - t2
+    for a, b in zip(pattern_outputs(out, flags, pe),
+                    pattern_outputs(ref, flags, pe)):
+        with open(a, "rb") as x, open(b, "rb") as y:
+            if x.read() != y.read():
+                raise AssertionError(f"phase 19 {tag}: {os.path.basename(a)} "
+                                     f"differs from the exact host path")
+    if launches["verify_worklist"] <= 0 or launches["verify_windows"] or \
+            any(degraded.values()) or not share > 0:
+        raise AssertionError(f"phase 19 {tag}: launches {launches}, OOM "
+                             f"batches {degraded}, share {share}: the fused "
+                             f"stage must launch and K1 never, no batch may "
+                             f"go to the host after a device OOM, and the "
+                             f"device must resolve some "
+                             f"{'pairs' if pe else 'reads'}")
+    unit = "pairs" if pe else "reads"
+    return dict(tag=tag, unit=unit, n=n, share=round(share, 4),
+                classes=classes, launches=launches["verify_worklist"],
+                wall_s=round(t1 - t0, 2), rate=round(n / (t1 - t0), 1),
+                mapping_s=round(mapping, 2),
+                rate_mapping=round(n / mapping, 1), exact_s=round(exact_s, 2),
+                graphs=graphs)
+
+
+def pattern_cpu_parity(index: str, fastq: str, device) -> str:
+    """The card's ``map_single_end`` arrays == a CPU TorchBackend's on the
+    first P7_PARITY_READS pattern-7 reads, element for element."""
+    import numpy as np
+
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index import io_walt
+
+    pattern = get_pattern("7")
+    gm, _ = io_walt.read_head(index)
+    tables = [io_walt.read_table_cached(index + s, gm)
+              for s in ("_CT00", "_CT01")]
+    codes, lens = load_reads(fastq, P7_PARITY_READS)
+    got, secs = [], []
+    for dev in (device, "cpu"):
+        backend = TorchBackend(device=dev)
+        out, t = timed(lambda: backend.map_single_end(codes, lens, tables,
+                                                      5000, 6, pattern))
+        got.append(out)
+        secs.append(t)
+        backend.free_tables()
+    for name, a, b in zip(("pos", "times", "minus", "mm", "fallback"), *got):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"phase 19: the card's {name} != the CPU "
+                                 f"backend's on {int((a != b).sum())} of "
+                                 f"{len(lens)} pattern-7 reads")
+    return (f"card == CPU TorchBackend on {len(lens)} pattern-7 reads, all "
+            f"five arrays (share {float((~got[0][4]).mean()):.4f}; card "
+            f"{secs[0]:.1f} s, CPU {secs[1]:.1f} s, tables included)")
+
+
+def pool_watch(device, genome, indexes: dict) -> tuple:
+    """The ROADMAP's graph-pool watch: one backend maps WATCH_READS reads
+    of each WATCH_LENGTHS length under pattern 7 and then pattern 3
+    (``indexes``: pattern name -> index), printing its graphs and pool
+    bytes after each; fails if the working set passes HBM_RESERVE.
+    Returns (the largest working set in GiB, fused launches)."""
+    from walt_tpu_torch.constants import get_pattern
+    from walt_tpu_torch.core.torch_backend import TorchBackend
+    from walt_tpu_torch.index import io_walt
+    from walt_tpu_torch.synth import sample_reads
+
+    reads = {L: sample_reads(genome, WATCH_READS, L, seed=1000 + L)[:2]
+             for L in WATCH_LENGTHS}
+    backend = TorchBackend(device=device)
+    backend.table_budget_hint = 2
+    held = start_memory(device)
+    reserve = TorchBackend.HBM_RESERVE / 2**30
+    zero_counts()
+    notes, top = [], 0.0
+    for name in ("7", "3"):
+        pattern, index = get_pattern(name), indexes[name]
+        gm, _ = io_walt.read_head(index)
+        tables = [io_walt.read_table_cached(index + s, gm)
+                  for s in ("_CT00", "_CT01")]
+        for L, (codes, lens) in reads.items():
+            fb = backend.map_single_end(codes, lens, tables, 5000, 6,
+                                        pattern)[4]
+            ws = working_set(device, held, backend)
+            top = max(top, ws)
+            st = backend.graphs.stats().get(str(device), {})
+            notes.append(f"p{name} {L} bp: share {float((~fb).mean()):.4f}, "
+                         f"{st.get('graphs', 0)} graphs, pools "
+                         f"{st.get('pool_bytes', 0)} B, working set "
+                         f"{ws:.3f} GiB")
+            if ws > reserve:
+                raise AssertionError(f"phase 19 watch: working set "
+                                     f"{ws:.3f} GiB > HBM_RESERVE "
+                                     f"{reserve:.3f} GiB after {notes[-1]}")
+    launches = counts()
+    backend.free_tables()
+    say("pools", f"phase 19 graph-pool watch, one backend, {WATCH_READS} "
+                 f"reads per length, pattern 7 then pattern 3 "
+                 f"(HBM_RESERVE {reserve:.3f} GiB): " + "; ".join(notes)
+                 + f"; launches {launches}")
+    return top, launches
+
+
+def patterns_phase(device, index3: str) -> dict:
+    """Phase 19: seed patterns 5 and 7 on one card (see the module
+    docstring).  Returns the fused launches of its runs by name and the
+    largest working set."""
+    import numpy as np
+
+    from walt_tpu_torch.synth import (
+        codes_to_fastq, make_genome_repetitive, sample_pairs, sample_reads,
+        write_genome_fasta,
+    )
+
+    t_phase = time.perf_counter()
+    work = os.path.join(DATA, "patterns")
+    os.makedirs(work, exist_ok=True)
+    index7 = os.path.join(work, "p7", "smoke.dbindex")
+    build7, sha7 = pattern_index(os.path.join(DATA, "genome.fa"), index7, "7")
+    say("patterns", f"pattern-7 index of phase 4's {GENOME_BASES} bp genome "
+                    f"(python -m walt_tpu_torch.cli index --seed-pattern 7) "
+                    f"in {build7:.1f} s, every entry inside the genome; "
+                    f"sha256 {sha7}")
+
+    genome = make_genome_repetitive(GENOME_BASES, n_chroms=2, seed=42)
+    codes, _, _ = sample_reads(genome, P7_READS, READ_LEN, seed=13)
+    tiny, _, _ = sample_reads(genome, P7_SHORT, READ_LEN, seed=23)
+    rng = np.random.default_rng(19)
+    lens = np.concatenate([rng.integers(23, READ_LEN + 1, P7_READS),
+                           rng.integers(15, 23, P7_SHORT)])
+    se7 = os.path.join(work, "p7_reads.fq")
+    codes_to_fastq(np.concatenate([codes, tiny]), lens, se7)
+    del codes, tiny
+    c1, l1, c2, l2 = sample_pairs(genome, P7_PAIRS, P7_PAIR_LEN, seed=17,
+                                  frag_lo=100, frag_hi=300)
+    pe7 = (os.path.join(work, "p7_pairs_1.fq"),
+           os.path.join(work, "p7_pairs_2.fq"))
+    codes_to_fastq(c1, l1, pe7[0])
+    codes_to_fastq(c2, l2, pe7[1])
+    del c1, c2
+
+    g5 = make_genome_repetitive(P5_BP, n_chroms=2, seed=43)
+    fasta5 = os.path.join(work, "p5_genome.fa")
+    write_genome_fasta(g5, fasta5)
+    index5 = os.path.join(work, "p5", "smoke.dbindex")
+    build5, sha5 = pattern_index(fasta5, index5, "5")
+    c, lz, _ = sample_reads(g5, P5_READS, READ_LEN, seed=13)
+    se5 = os.path.join(work, "p5_reads.fq")
+    codes_to_fastq(c, lz, se5)
+    c1, l1, c2, l2 = sample_pairs(g5, P5_PAIRS, READ_LEN, seed=17,
+                                  frag_lo=150, frag_hi=500)
+    pe5 = (os.path.join(work, "p5_pairs_1.fq"),
+           os.path.join(work, "p5_pairs_2.fq"))
+    codes_to_fastq(c1, l1, pe5[0])
+    codes_to_fastq(c2, l2, pe5[1])
+    del c, c1, c2, g5
+    t_data = time.perf_counter() - t_phase
+    say("patterns", f"pattern-5 index of a {P5_BP} bp genome (seed 43) in "
+                    f"{build5:.1f} s, every entry inside the genome, sha256 "
+                    f"{sha5}; inputs written, {t_data:.1f} s into the phase")
+
+    n7, n7p = P7_READS + P7_SHORT, P7_PAIRS
+    runs = [pattern_run(*args, device) for args in (
+        (index7, se7, work, "p7_se_au", "7", ["-a", "-u"], n7),
+        (index7, se7, work, "p7_se_Asam", "7", ["-A", "-sam"], n7),
+        (index7, pe7, work, "p7_pe", "7", [], n7p),
+        (index7, pe7, work, "p7_pe_sam", "7", ["-sam"], n7p),
+        (index5, se5, work, "p5_se", "5", [], P5_READS),
+        (index5, pe5, work, "p5_pe", "5", [], P5_PAIRS))]
+    for r in runs:
+        say("patterns", f"{r['tag']}: CLI {r['rate']} {r['unit']}/s "
+                        f"({r['wall_s']} s for {r['n']} {r['unit']}, tables "
+                        f"included), {r['rate_mapping']} {r['unit']}/s "
+                        f"without the table setup ({r['mapping_s']} s); "
+                        f"device-resolved "
+                        f"{'pair ' if r['unit'] == 'pairs' else ''}share "
+                        f"{r['share']}"
+                        + (f", by length {r['classes']}" if r['classes'] else
+                           "")
+                        + f"; fused launches {r['launches']}, K1 0, no OOM "
+                          f"batch; exact host path {r['exact_s']} s; every "
+                          f"output file byte-identical to it; graphs "
+                          f"{r['graphs']}")
+    # a too-short read counts once per strand pass, as in the reference
+    # (mapping.cpp:230-233 under both table iterations of :491-499)
+    with open(os.path.join(work, "p7_se_au.mr.mapstats")) as f:
+        too_short = int(f.read().split("too_short:")[1].split()[0])
+    if too_short != 2 * P7_SHORT:
+        raise AssertionError(f"phase 19: .mapstats too_short {too_short}, "
+                             f"want 2 x {P7_SHORT} (the 15-22 bp reads)")
+    say("patterns", pattern_cpu_parity(index7, se7, device))
+    ws, watch_launches = pool_watch(device, genome, {"7": index7,
+                                                     "3": index3})
+    say("patterns", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(ws=ws, watch=watch_launches, **{
+        r["tag"]: {"verify_worklist": r["launches"], "verify_windows": 0}
+        for r in runs})
+
+
 def mesh_dryrun() -> None:
     """Phase 12."""
     from walt_tpu_torch import entry
@@ -2247,11 +2663,12 @@ def main() -> int:
     knobs_phase(index, se_sub, pe_sub, device)
     launches_dp = dp_phase(index, device)
     launches_hg19, launches_hg19_pe, ws_hg19 = hg19_phase()
+    patterns = patterns_phase(device, index)
 
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
     sets = dict(se=ws_se, pe=ws_pe, mesh_se=ws_mesh, mesh_pe=ws_mesh_pe,
-                hg19=ws_hg19)
+                hg19=ws_hg19, patterns_watch=patterns.pop("ws"))
     reserve = TorchBackend.HBM_RESERVE / 2**30
     say("reserve", f"working sets (peak reserved less resident tables) "
                    f"{', '.join(f'{k} {v:.3f}' for k, v in sets.items())} "
@@ -2269,7 +2686,8 @@ def main() -> int:
                 launches_shifted=launches_shifted,
                 launches_shifted_mesh=launches_shifted_mesh,
                 launches_dp=launches_dp, launches_hg19=launches_hg19,
-                launches_hg19_pe=launches_hg19_pe)
+                launches_hg19_pe=launches_hg19_pe,
+                **{f"launches_{k}": v for k, v in patterns.items()})
 
     def entry(name, source, nums, **extra):
         return {"name": name, "route": "cuda", "source": source,

@@ -45,6 +45,10 @@ def test_verify_kernel_matches_reference(cuda_device, M, W):
     (5003, 3000, 1, {}), (5003, 3000, 16, {}), (4097, 2000, 17, {}),
     (4097, 2000, 63, {}), (2000, 1000, 7, dict(n_chroms=3000)),
     (600, 60_000, 7, {}), (255, 100, 7, dict(seeds=(0,))),
+    (5003, 3000, 7, dict(pattern="5")), (5003, 3000, 2, dict(pattern="7")),
+    (5003, 3000, 3, dict(pattern="7")), (196_608, 131_072, 7,
+                                         dict(pattern="7")),
+    (5003, 3000, 7, dict(pattern="7", check=False)),
 ])
 def test_verify_stage_kernel_matches_reference(cuda_device, M, B, W, opts):
     """The fused verify stage on the card equals its plain PyTorch version

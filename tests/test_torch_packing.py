@@ -30,6 +30,21 @@ def _np(t):
     return t.numpy().astype(np.uint32)
 
 
+@pytest.mark.parametrize("L", [23, 32, 100])
+def test_clear_past_len_np_is_packing_zeroed_codes(L):
+    """Lanes at or past each read's length become base code 0: the same
+    words as walt_tpu's packer on codes zeroed past the length, whatever
+    the batch padded them with (PAD_CODE 254 packs as G)."""
+    rng = np.random.default_rng(L)
+    lens = rng.integers(0, L + 1, 64)
+    lens[:3] = [0, L, 16]
+    codes = rng.integers(0, 4, (64, L), dtype=np.uint8)
+    zeroed = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0)
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 254
+    got = tp.clear_past_len_np(tp.pack_codes_np(codes), lens)
+    np.testing.assert_array_equal(got, jp.pack_codes_np(zeroed))
+
+
 def test_host_packers_identical():
     rng = np.random.default_rng(1)
     codes = rng.integers(0, 4, (9, 77), dtype=np.uint8)

@@ -264,6 +264,12 @@ STAGE_CASES = {
     "past_2_31_93_chroms": (3000, 2000, 7, dict(straddle=True, n_chroms=93)),
     "past_2_31_key16": (2000, 1000, 13, dict(straddle=True, n_chroms=93,
                                              key16=True)),
+    # seed patterns 5 (S = 5) and 7 (S = 7, cared_weight 4): no verify_skip
+    "pattern5_w7": (3000, 2000, 7, dict(pattern="5")),
+    "pattern7_w2": (900, 600, 2, dict(pattern="7")),
+    "pattern7_w3": (900, 600, 3, dict(pattern="7")),
+    "pattern7_w7": (3000, 2000, 7, dict(pattern="7")),
+    "pattern7_exact_b": (3000, 2000, 7, dict(pattern="7", check=False)),
 }
 
 

@@ -97,6 +97,15 @@ class SeedPattern:
     def n_buckets(self) -> int:
         return 4**self.key_weight
 
+    @property
+    def key_span(self) -> int:
+        """Read length that holds the hash key of every seed shift: the last
+        shift's last key base is ``pattern_len - 1 + cared[key_weight - 1]``.
+        Pattern 7 reads of 23-24 bp are shorter; their keys read base code 0
+        (A) past the read's end, on every path (the reference reads past
+        its string there, which is undefined)."""
+        return self.pattern_len + int(self.cared[self.key_weight - 1])
+
     def max_repeats(self) -> int:
         """Repeat cap applied by the reference (mapping.cpp:236-238)."""
         return 50

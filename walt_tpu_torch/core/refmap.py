@@ -117,12 +117,18 @@ def enumerate_candidates(read_codes: np.ndarray, genome: Genome, ht: HashTable,
     seq = seq_padded if seq_padded is not None else padded_seq(genome, pattern)
     start_index = genome.start_index.astype(np.int64)
     read = convert_read(read_codes, ag_wildcard)
+    # the hash keys of a read shorter than key_span read base code 0 past
+    # its end, as the native exact path and the device do
+    keyed = read
+    if read_len < pattern.key_span:
+        keyed = np.zeros(pattern.key_span, dtype=np.uint8)
+        keyed[:read_len] = read
 
     repeats = int(pattern.repeats_for_len(read_len))
     seed_len = int(pattern.seed_len_for_len(read_len))
 
     for seed_i in range(pattern.pattern_len):
-        shifted = read[seed_i:]
+        shifted = keyed[seed_i:]
         # hash key over cared[0..key_weight) of the shifted read
         key = 0
         for i in range(pattern.key_weight):

@@ -466,6 +466,12 @@ class TorchBackend:
         packed = packing.pack_codes_np(
             np.pad(codes, ((0, 0), (0, Lmax - codes.shape[1])))
         )
+        # a read shorter than key_span hashes lanes past its end: base code
+        # 0 there, as on the exact host paths (the batch pads with PAD_CODE)
+        short = np.flatnonzero(lens < pattern.key_span)
+        if short.size:
+            packed[short] = packing.clear_past_len_np(packed[short],
+                                                      lens[short])
         ladder = [self.small_chunk]
         while ladder[-1] * 4 < self.chunk:
             ladder.append(ladder[-1] * 4)

@@ -177,6 +177,8 @@ def sort_buckets(genome: Genome, counter: np.ndarray, bucket_of: np.ndarray,
             nthreads,
         ):
             return out
+    except ValueError:
+        raise
     except Exception:
         pass
     if bucket_of is None:  # native CSR build succeeded but the sort failed

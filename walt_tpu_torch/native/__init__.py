@@ -104,11 +104,11 @@ def _load():
         u32p, i32p, u8p, i32p,
     ]
     lib.pe_finalize.restype = None
-    lib.sort_buckets.argtypes = [
+    lib.sort_buckets_mt.argtypes = [
         u8p, u32p, ctypes.c_int32, u32p, ctypes.c_int64, u32p, u32p,
-        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
-    lib.sort_buckets.restype = None
+    lib.sort_buckets_mt.restype = ctypes.c_int32
     lib.csr_count.argtypes = [
         u8p, u32p, ctypes.c_int32, u32p, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, u32p, ctypes.c_int32,
@@ -119,10 +119,6 @@ def _load():
         ctypes.c_int32, u32p, ctypes.c_int32, u8p, u32p,
     ]
     lib.csr_fill.restype = None
-    lib.sort_buckets_mt.argtypes = lib.sort_buckets.argtypes + [
-        ctypes.c_int32,
-    ]
-    lib.sort_buckets_mt.restype = None
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.fastq_scan.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, i32p,
@@ -374,7 +370,8 @@ def sort_buckets(seq, chrom_start, counter, index, cared, key_weight,
     access, so no padding is needed.  Large buckets sort on packed comparator
     columns and buckets spread over ``nthreads`` threads -- both
     permutation-identical to the reference's introsort (see finalize.cpp).
-    Returns False when the library is unavailable."""
+    Returns False when the library is unavailable; raises ValueError when
+    the cared positions past the key exceed the packed columns' capacity."""
     lib = get_lib()
     if lib is None:
         return False
@@ -384,12 +381,16 @@ def sort_buckets(seq, chrom_start, counter, index, cared, key_weight,
 
     if nthreads <= 0:
         nthreads = max(1, min(8, (os.cpu_count() or 1)))
-    lib.sort_buckets_mt(
+    rc = lib.sort_buckets_mt(
         ptr(seq, ctypes.c_uint8), ptr(chrom_start, ctypes.c_uint32),
         len(chrom_start) - 1, ptr(counter, ctypes.c_uint32),
         len(counter) - 1, ptr(index, ctypes.c_uint32),
         ptr(cared, ctypes.c_uint32), key_weight, cared_size, nthreads,
     )
+    if rc != 0:
+        raise ValueError(
+            f"sort_buckets: {cared_size - key_weight} cared positions past "
+            f"the key exceed the packed comparator's capacity")
     return True
 
 
@@ -461,9 +462,14 @@ def _exact_args(codes, lens, tables, ag_wildcard, pattern, nthreads):
 
     from walt_tpu_torch.core import refmap
 
-    n, lmax = codes.shape
-    conv = np.ascontiguousarray(refmap.convert_read(codes, ag_wildcard))
+    n = codes.shape[0]
     lens = np.ascontiguousarray(lens.astype(np.int32))
+    # base code 0 past each read's end, in a row wide enough for every
+    # seed's hash key (SeedPattern.key_span): the batch pads with PAD_CODE
+    lmax = max(codes.shape[1], pattern.key_span)
+    conv = np.zeros((n, lmax), dtype=np.uint8)
+    conv[:, : codes.shape[1]] = refmap.convert_read(codes, ag_wildcard)
+    conv[np.arange(lmax)[None, :] >= lens[:, None]] = 0
     repeats = np.ascontiguousarray(
         pattern.repeats_for_len(lens).astype(np.int32)
     )

@@ -214,6 +214,87 @@ static void join_pair(const ChromMap& g, const Cand* ranked1, int n1,
   }
 }
 
+// ---- within-bucket index sort (sort_buckets_mt below) ----
+
+// packed comparator columns of the largest pattern: pattern 7 cares about
+// cared_size - key_weight = 80 - 12 = 68 positions past the key, 16 a column
+constexpr int32_t kSortMaxCols = 5;
+
+struct SortArgs {
+  const uint8_t* seq;
+  const uint32_t* chrom_start;
+  ChromMap g;
+  const uint32_t* counter;
+  int64_t n_buckets;
+  uint32_t* index;
+  const uint32_t* cared;
+  int32_t key_weight, cared_size;
+};
+
+// reference.cpp:258-300: entry p1 sorts before p2
+inline bool cmp_text(const SortArgs& a, uint32_t p1, uint32_t p2) {
+  const uint8_t* s1 = a.seq + p1;
+  const uint8_t* s2 = a.seq + p2;
+  uint32_t l1 = a.chrom_start[a.g.chrom_of(p1) + 1] - p1;
+  uint32_t l2 = a.chrom_start[a.g.chrom_of(p2) + 1] - p2;
+  for (int32_t j = a.key_weight; j < a.cared_size; ++j) {
+    uint32_t off = a.cared[j];
+    if (off >= l2) return false;
+    if (off >= l1) return true;
+    if (s1[off] < s2[off]) return true;
+    if (s1[off] > s2[off]) return false;
+  }
+  return false;
+}
+
+// Sort the buckets of dynamic blocks taken from ``next``; large buckets on
+// NC packed columns per entry.
+template <int NC>
+void sort_worker(const SortArgs& a, std::atomic<int64_t>& next) {
+  struct Row {
+    uint64_t c[NC];
+    uint32_t pos;
+  };
+  const int32_t npos = a.cared_size - a.key_weight;
+  const int64_t BLOCK = 8192;
+  auto text = [&a](uint32_t p1, uint32_t p2) { return cmp_text(a, p1, p2); };
+  std::vector<Row> rows;
+  for (;;) {
+    int64_t b0 = next.fetch_add(BLOCK);
+    if (b0 >= a.n_buckets) return;
+    int64_t b1 = b0 + BLOCK < a.n_buckets ? b0 + BLOCK : a.n_buckets;
+    for (int64_t i = b0; i < b1; ++i) {
+      uint32_t lo = a.counter[i], hi = a.counter[i + 1];
+      uint32_t sz = hi - lo;
+      if (sz <= 1) continue;
+      if (sz <= 24) {  // packing overhead beats comparison savings
+        std::sort(a.index + lo, a.index + hi, text);
+        continue;
+      }
+      rows.resize(sz);
+      for (uint32_t k = 0; k < sz; ++k) {
+        uint32_t pos = a.index[lo + k];
+        uint32_t l = a.chrom_start[a.g.chrom_of(pos) + 1] - pos;
+        Row& r = rows[k];
+        r.pos = pos;
+        for (int q = 0; q < NC; ++q) r.c[q] = 0;
+        const uint8_t* s = a.seq + pos;
+        for (int32_t j = 0; j < npos; ++j) {
+          uint32_t off = a.cared[a.key_weight + j];
+          uint64_t v = off < l ? (uint64_t)(s[off] + 1) : 0;
+          r.c[j >> 4] |= v << (61 - 3 * (j & 15));
+        }
+      }
+      std::sort(rows.begin(), rows.end(), [](const Row& x, const Row& y) {
+        for (int q = 0; q + 1 < NC; ++q)
+          if (x.c[q] != y.c[q]) return x.c[q] < y.c[q];
+        return x.c[NC - 1] < y.c[NC - 1];
+      });
+      for (uint32_t k = 0; k < sz; ++k) a.index[lo + k] = rows[k].pos;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -306,109 +387,48 @@ void pe_join_ranked(
 //    own loop); best for small buckets, where comparisons are few and
 //    packing would dominate;
 //  - packed: each entry's cared bases [key_weight, cared_size) are packed
-//    once into <=3 uint64 columns, 3 bits per position (base+1, 0 past the
-//    chromosome end, first position most significant); a comparison is then
-//    <=3 word compares.  Outcome-equal to text because cared offsets are
-//    strictly increasing, so once one entry is past its chromosome end all
-//    its later positions are too and the 0 sentinel decides exactly like
-//    the reference's l1/l2 guards.
+//    once into ncols = ceil((cared_size - key_weight) / 16) uint64 columns,
+//    3 bits per position (base+1, 0 past the chromosome end, first position
+//    most significant); a comparison is then <= ncols word compares, all
+//    of them.  Outcome-equal to text because cared offsets are strictly
+//    increasing, so once one entry is past its chromosome end all its later
+//    positions are too and the 0 sentinel decides exactly like the
+//    reference's l1/l2 guards.  Pattern 3 packs 48 positions and pattern 5
+//    44 (3 columns), pattern 7 68 (5 columns).
 // Buckets are independent, so they sort on a thread pool (dynamic blocks).
-void sort_buckets_mt(const uint8_t* seq, const uint32_t* chrom_start,
-                     int32_t n_chroms, const uint32_t* counter,
-                     int64_t n_buckets, uint32_t* index,
-                     const uint32_t* cared, int32_t key_weight,
-                     int32_t cared_size, int32_t nthreads) {
-  ChromMap g{chrom_start, n_chroms};
-  auto cmp_text = [&](uint32_t p1, uint32_t p2) {
-    const uint8_t* s1 = seq + p1;
-    const uint8_t* s2 = seq + p2;
-    uint32_t l1 = chrom_start[g.chrom_of(p1) + 1] - p1;
-    uint32_t l2 = chrom_start[g.chrom_of(p2) + 1] - p2;
-    for (int32_t j = key_weight; j < cared_size; ++j) {
-      uint32_t off = cared[j];
-      if (off >= l2) return false;
-      if (off >= l1) return true;
-      if (s1[off] < s2[off]) return true;
-      if (s1[off] > s2[off]) return false;
-    }
-    return false;
-  };
-
-  struct Row {
-    uint64_t c[3];
-    uint32_t pos;
-  };
-  const int32_t npos = cared_size - key_weight;  // <= 48
+// Returns 0, or -1 (nothing sorted) when the cared positions past the key
+// need more than kSortMaxCols columns.
+int32_t sort_buckets_mt(const uint8_t* seq, const uint32_t* chrom_start,
+                        int32_t n_chroms, const uint32_t* counter,
+                        int64_t n_buckets, uint32_t* index,
+                        const uint32_t* cared, int32_t key_weight,
+                        int32_t cared_size, int32_t nthreads) {
+  const int32_t npos = cared_size - key_weight;
   const int32_t ncols = (npos + 15) / 16;
-
+  if (npos < 0 || ncols > kSortMaxCols) return -1;
+  const SortArgs a{seq, chrom_start, ChromMap{chrom_start, n_chroms}, counter,
+                   n_buckets, index, cared, key_weight, cared_size};
   std::atomic<int64_t> next(0);
-  const int64_t BLOCK = 8192;
   auto worker = [&]() {
-    std::vector<Row> rows;
-    for (;;) {
-      int64_t b0 = next.fetch_add(BLOCK);
-      if (b0 >= n_buckets) return;
-      int64_t b1 = b0 + BLOCK < n_buckets ? b0 + BLOCK : n_buckets;
-      for (int64_t i = b0; i < b1; ++i) {
-        uint32_t lo = counter[i], hi = counter[i + 1];
-        uint32_t sz = hi - lo;
-        if (sz <= 1) continue;
-        if (sz <= 24) {  // packing overhead beats comparison savings
-          std::sort(index + lo, index + hi, cmp_text);
-          continue;
-        }
-        rows.resize(sz);
-        for (uint32_t k = 0; k < sz; ++k) {
-          uint32_t pos = index[lo + k];
-          uint32_t l = chrom_start[g.chrom_of(pos) + 1] - pos;
-          Row& r = rows[k];
-          r.pos = pos;
-          r.c[0] = r.c[1] = r.c[2] = 0;
-          const uint8_t* s = seq + pos;
-          for (int32_t j = 0; j < npos; ++j) {
-            uint32_t off = cared[key_weight + j];
-            uint64_t v = off < l ? (uint64_t)(s[off] + 1) : 0;
-            r.c[j >> 4] |= v << (61 - 3 * (j & 15));
-          }
-        }
-        if (ncols == 1) {
-          std::sort(rows.begin(), rows.end(),
-                    [](const Row& a, const Row& b) { return a.c[0] < b.c[0]; });
-        } else if (ncols == 2) {
-          std::sort(rows.begin(), rows.end(), [](const Row& a, const Row& b) {
-            if (a.c[0] != b.c[0]) return a.c[0] < b.c[0];
-            return a.c[1] < b.c[1];
-          });
-        } else {
-          std::sort(rows.begin(), rows.end(), [](const Row& a, const Row& b) {
-            if (a.c[0] != b.c[0]) return a.c[0] < b.c[0];
-            if (a.c[1] != b.c[1]) return a.c[1] < b.c[1];
-            return a.c[2] < b.c[2];
-          });
-        }
-        for (uint32_t k = 0; k < sz; ++k) index[lo + k] = rows[k].pos;
-      }
+    switch (ncols) {
+      case 2: sort_worker<2>(a, next); break;
+      case 3: sort_worker<3>(a, next); break;
+      case 4: sort_worker<4>(a, next); break;
+      case 5: sort_worker<5>(a, next); break;
+      default: sort_worker<1>(a, next); break;  // ncols 0 or 1
     }
   };
 
   int nt = nthreads < 1 ? 1 : nthreads;
   if (nt == 1) {
     worker();
-    return;
+    return 0;
   }
   std::vector<std::thread> ts;
   ts.reserve(nt);
   for (int t = 0; t < nt; ++t) ts.emplace_back(worker);
   for (auto& th : ts) th.join();
-}
-
-void sort_buckets(const uint8_t* seq, const uint32_t* chrom_start,
-                  int32_t n_chroms, const uint32_t* counter,
-                  int64_t n_buckets, uint32_t* index,
-                  const uint32_t* cared, int32_t key_weight,
-                  int32_t cared_size) {
-  sort_buckets_mt(seq, chrom_start, n_chroms, counter, n_buckets, index,
-                  cared, key_weight, cared_size, 1);
+  return 0;
 }
 
 }  // extern "C"

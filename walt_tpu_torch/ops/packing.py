@@ -49,6 +49,17 @@ def pack_codes_np(codes: np.ndarray) -> np.ndarray:
     return out
 
 
+def clear_past_len_np(packed: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Zero, in place, the lanes of (B, W) packed read words at or past each
+    read's length (a batch pads its code rows with PAD_CODE, whose low bits
+    pack as G), and return them."""
+    w = np.arange(packed.shape[-1], dtype=np.int64)[None, :]
+    nvalid = np.clip(lens.astype(np.int64)[:, None] - 16 * w, 0, 16)
+    keep = ((np.int64(1) << (2 * nvalid)) - 1) << (32 - 2 * nvalid)
+    packed &= keep.astype(np.uint32)
+    return packed
+
+
 def pack_genome_np(seq_codes: np.ndarray, tail_words: int = 16) -> np.ndarray:
     """Genome codes -> packed words with ``tail_words`` zero words appended
     so window extraction never reads past the end."""

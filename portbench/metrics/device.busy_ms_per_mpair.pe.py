@@ -1,0 +1,9 @@
+"""Milliseconds in which an operation ran on the card, over the traced
+window, per million pairs fed."""
+
+
+def read(run):
+    tr = run["trace"]
+    if run["mode"] != "pe" or tr is None or not tr["busy_s"] or not run["n"]:
+        return None
+    return tr["busy_s"] * 1e3 / (run["n"] / 1e6)

@@ -845,7 +845,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     import numpy as np
     import torch
 
-    from walt_tpu_torch import native
+    from walt_tpu_torch import native, perf
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.host.fastq import FgetsLines, load_batch
     from walt_tpu_torch.index import io_walt
@@ -864,6 +864,7 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
     backend.table_budget_hint = 2
     held = start_memory(device)
     zero_counts()
+    reads0 = perf.counters().get("backend.reads", 0)
     t0 = time.perf_counter()
     pos, times, minus, mm, fb = backend.map_single_end(
         codes, lens, tables, 5000, 6, pattern)
@@ -883,8 +884,9 @@ def backend_parity(index: str, fastq: str, device, min_share: float):
             raise AssertionError(f"device {name} != native exact replay on "
                                  f"{bad.size} resolved reads")
     share = float(ok.mean())
-    if backend.total_reads != n:
-        raise AssertionError(f"total_reads {backend.total_reads} != {n}")
+    reads = perf.counters().get("backend.reads", 0) - reads0
+    if reads != n:
+        raise AssertionError(f"backend.reads {reads} != {n}")
     if launches["verify_worklist"] <= 0:
         raise AssertionError("the mapping never launched the verify kernel")
     if share < min_share:
@@ -1065,6 +1067,7 @@ def pe_parity(index: str, pe, device, min_share: float):
     import numpy as np
     import torch
 
+    from walt_tpu_torch import perf
     from walt_tpu_torch.host.fastq import FgetsLines, load_batch
     from walt_tpu_torch.index import io_walt
     from walt_tpu_torch.core.torch_backend import TorchBackend
@@ -1081,12 +1084,14 @@ def pe_parity(index: str, pe, device, min_share: float):
     backend = TorchBackend(device=device)
     backend.table_budget_hint = 4
     held = start_memory(device)
+    reads0 = perf.counters().get("backend.reads", 0)
     share, launches, t_map, t_exact = map_pairs_vs_exact(
         backend, mates, tables, gm.start_index.astype(np.uint32))
     peak = torch.cuda.max_memory_allocated(device)
     ws = working_set(device, held, backend)
-    if backend.total_reads != 2 * n:
-        raise AssertionError(f"total_reads {backend.total_reads} != {2 * n}")
+    reads = perf.counters().get("backend.reads", 0) - reads0
+    if reads != 2 * n:
+        raise AssertionError(f"backend.reads {reads} != {2 * n}")
     if share < min_share:
         raise AssertionError(f"device-resolved pair share {share:.4f} < "
                              f"{min_share}")

@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import pytest
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.core.torch_backend import TorchBackend
 from walt_tpu_torch.host.fastq import FgetsLines, load_batch
@@ -141,7 +142,9 @@ def test_map_single_end_matches_walt_tpu_under_knobs(clean_env, rep):
     tb = TorchBackend(device="cpu", small_chunk=64, verify_slab_t1=16)
     jb = JaxBackend(small_chunk=64, verify_slab_t1=16)
     assert tb.chunk == jb.chunk == 512 and tb._wl1 == 1.25
+    c0 = perf.counters()
     got = tb.map_single_end(codes, lens, tables, 5000, 6, PATTERN)
+    c1 = perf.counters()
     want = jb.map_single_end(codes, lens, tables, 5000, 6, PATTERN)
     np.testing.assert_array_equal(got[4], want[4])
     ok = ~got[4]
@@ -149,8 +152,9 @@ def test_map_single_end_matches_walt_tpu_under_knobs(clean_env, rep):
     for g, w in zip(got[:4], want[:4]):
         np.testing.assert_array_equal(g[ok], np.asarray(w)[ok])
     assert tb._wl1 == jb._wl1
-    assert (tb.total_reads, tb.fallback_reads) == (jb.total_reads,
-                                                   jb.fallback_reads)
+    assert tuple(c1.get(k, 0) - c0.get(k, 0) for k in (
+        "backend.reads", "backend.fallback_reads")) == (jb.total_reads,
+                                                        jb.fallback_reads)
     # the slab knob reached the device passes: slab 8 keeps fewer reads
     default = TorchBackend(device="cpu", small_chunk=64)
     fb8 = default.map_single_end(codes, lens, tables, 5000, 6, PATTERN)[4]
@@ -318,9 +322,11 @@ def test_hbm_budget_error_degrades_to_host(clean_env, tmp_path, my_index,
     process_single_end(my_index, se_fastq, ok, batch_size=64,
                        max_mismatches=6, backend=get_backend("numpy"))
     deg = TorchBackend(device="cpu", chunk=256, small_chunk=64)
+    reads0 = perf.counters().get("backend.reads", 0)
     assert _run_se(my_index, se_fastq, str(tmp_path / "deg.mr"),
                    deg) == _read_all(ok)
-    assert not deg._tables and deg.total_reads == 0
+    assert not deg._tables
+    assert perf.counters().get("backend.reads", 0) == reads0
 
 
 def test_chip_smoke_knobs_phase_rehearses_on_cpu(clean_env, tmp_path,

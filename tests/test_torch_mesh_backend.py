@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.index import io_walt
 from walt_tpu_torch.core.torch_backend import TorchBackend
@@ -63,14 +64,16 @@ def test_map_single_end_matches_jax_mesh(mesh8, tmesh, tables, se_fastq):
     codes, lens = _load(se_fastq)
     se = [tables["CT00"], tables["CT01"]]
     tb = TorchBackend(mesh=tmesh)
+    reads0 = perf.counters().get("backend.reads", 0)
     got = tb.map_single_end(codes, lens, se, 5000, 6, PATTERN)
+    reads = perf.counters().get("backend.reads", 0) - reads0
     want = JaxBackend(mesh=mesh8).map_single_end(codes, lens, se, 5000, 6,
                                                  PATTERN)
     for name, g, w in zip(("pos", "times", "minus", "mm", "fallback"), got,
                           want):
         np.testing.assert_array_equal(g, w, err_msg=name)
     assert tb.rungs == {"CT00": "uniq", "CT01": "uniq"}
-    assert tb.total_reads == len(lens) and (~got[4]).mean() > 0.9
+    assert reads == len(lens) and (~got[4]).mean() > 0.9
 
 
 def test_map_strand_slabs_matches_jax_mesh(mesh8, tmesh, tables, se_fastq):
@@ -157,9 +160,11 @@ def test_mesh_end_to_end_matches_numpy(tmp_path, monkeypatch, tmesh,
     if not native_lib:
         monkeypatch.setattr(native, "get_lib", lambda: None)
     backend = TorchBackend(mesh=tmesh)
+    reads0 = perf.counters().get("backend.reads", 0)
     assert _run_se(tmp_path, "se.mr", my_index, se_fastq, backend) == se_want
     assert _run_pe(tmp_path, "pe.mr", my_index, pe_fastq, backend) == pe_want
-    assert backend.total_reads > 0 and len(backend._tables) == 4
+    assert perf.counters().get("backend.reads", 0) > reads0
+    assert len(backend._tables) == 4
 
 
 def _repeat_genome():

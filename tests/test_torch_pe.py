@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.host.fastq import FgetsLines, load_batch
 from walt_tpu_torch.index import io_walt
@@ -257,7 +258,9 @@ def test_map_mate_slabs_matches_jax_and_numpy(pe_tables, mates, mate):
 
     # chunk ladder 32/64: several chunks, so the decode offsets are used
     tb = TorchBackend(device="cpu", chunk=64, small_chunk=32)
+    reads0 = perf.counters().get("backend.reads", 0)
     streams, fb = _mate_slabs(tb, pe_tables, mates, mate)
+    reads = perf.counters().get("backend.reads", 0) - reads0
     jstreams, jfb = _mate_slabs(JaxBackend(chunk=64, small_chunk=32),
                                 pe_tables, mates, mate)
     np.testing.assert_array_equal(fb, jfb)
@@ -268,7 +271,7 @@ def test_map_mate_slabs_matches_jax_and_numpy(pe_tables, mates, mate):
                 st["cnt"].dtype) == (np.int8, np.uint32, np.int32, np.int32)
     assert set(tb.rungs) == {("GA1" if mate == 2 else "CT0") + s
                              for s in "01"}
-    assert tb.total_reads == mates[0][0].shape[0]
+    assert reads == mates[0][0].shape[0]
     codes, lens = mates[mate - 1]
     for st, (g, ht) in zip(streams, pe_tables[mate - 1]):
         ref = NumpyBackend().map_strand(codes, lens, g, ht, mate == 2, 5000,
@@ -331,7 +334,9 @@ def test_flat_spill_falls_back(tmp_path, monkeypatch, my_index, pe_fastq,
     flags the spilled reads instead of failing, resolved reads keep their
     streams, and the CLI output stays byte-identical to the exact path."""
     clean = TorchBackend(device="cpu", chunk=64, small_chunk=32)
+    fb0 = perf.counters().get("backend.fallback_reads", 0)
     want = [_mate_slabs(clean, pe_tables, mates, m) for m in (1, 2)]
+    clean_fb = perf.counters().get("backend.fallback_reads", 0) - fb0
     monkeypatch.setattr(tpe, "FLAT_FACTOR", 1)
     spill = TorchBackend(device="cpu", chunk=64, small_chunk=32)
     for m, (ws, wfb) in zip((1, 2), want):
@@ -339,9 +344,10 @@ def test_flat_spill_falls_back(tmp_path, monkeypatch, my_index, pe_fastq,
         assert (fb & ~wfb).sum() > 10  # spilled reads were flagged
         assert not (~fb & wfb).any()
         _assert_streams_equal(streams, ws, ~fb)
-    made = _small_chunk_backends(monkeypatch)
+    _small_chunk_backends(monkeypatch)
+    fb0 = perf.counters().get("backend.fallback_reads", 0)
     got = _torch_pe_cli(tmp_path, my_index, pe_fastq)
-    assert made[0].fallback_reads > clean.fallback_reads
+    assert perf.counters().get("backend.fallback_reads", 0) - fb0 > clean_fb
     assert got == _numpy_pe(tmp_path, my_index, pe_fastq)
 
 

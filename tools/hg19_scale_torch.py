@@ -377,7 +377,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from walt_tpu_torch import cli, hbm_plan, native
+    from walt_tpu_torch import cli, hbm_plan, native, perf
     from walt_tpu_torch.constants import get_pattern
     from walt_tpu_torch.core.errors import degraded_batches
     from walt_tpu_torch.core.paired_end import process_paired_end
@@ -739,21 +739,27 @@ def main(argv=None) -> int:
     setup_s = place(backend, ("CT00", "CT01"), distinct)
     mesh_map = rep["mesh_map"] = mesh_record(plan, mesh, virtual, backend,
                                              setup_s)
+    def read_counts():
+        got = perf.counters()
+        return (got.get("backend.fallback_reads", 0),
+                got.get("backend.reads", 0))
+
+    fb_all, n_all = read_counts()
     for length, fq in fqs.items():
         out = out_path("mesh", length)
         fresh(out)
         launches0, deg0 = verify.stage_launches, degraded_batches["se"]
-        fb0, n0 = backend.fallback_reads, backend.total_reads
+        fb0, n0 = read_counts()
         t = time.time()
         stat = process_single_end(index, fq, out, batch_size=n_reads, b=B,
                                   max_mismatches=6, backend=backend)
         sync(distinct)
         mesh_s = time.time() - t
+        fb1, n1 = read_counts()
         mesh_map["by_length"][str(length)] = {
             "seconds": round(mesh_s, 1),
             "reads_per_s": round(n_reads / mesh_s, 1),
-            "fallback_pct": round(100 * (backend.fallback_reads - fb0)
-                                  / max(1, backend.total_reads - n0), 3),
+            "fallback_pct": round(100 * (fb1 - fb0) / max(1, n1 - n0), 3),
             "unique": int(stat.unique),
             "verify_launches": verify.stage_launches - launches0,
             "degraded_batches": degraded_batches["se"] - deg0,
@@ -762,8 +768,9 @@ def main(argv=None) -> int:
                                                 out)
         note(f"mesh {length} bp: {mesh_map['by_length'][str(length)]}, "
              f"parity {parities[f'mesh_{length}']}")
+    fb1, n1 = read_counts()
     mesh_map["fallback_pct"] = round(
-        100 * backend.fallback_reads / max(1, backend.total_reads), 3)
+        100 * (fb1 - fb_all) / max(1, n1 - n_all), 3)
     mesh_map["verify_launches"] = sum(
         v["verify_launches"] for v in mesh_map["by_length"].values())
     card_records(mesh_map, backend, distinct, held)

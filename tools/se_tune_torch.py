@@ -119,15 +119,19 @@ class Sweep:
     def run(self, process, *args, **kw) -> dict:
         """One ``process(*args, *files, out, backend=...)`` run: its wall
         seconds, fallback share and kernel launches."""
+        from walt_tpu_torch import perf
+
         b = self.backend
-        b.fallback_reads = b.total_reads = 0
         self.cs.fresh(self.out)
         self.cs.zero_counts()
+        c0 = perf.counters()
         t0 = time.perf_counter()
         process(*args, *self.files, self.out, backend=b, **kw)
-        return dict(seconds=time.perf_counter() - t0,
-                    fallback_pct=100 * b.fallback_reads / max(
-                        1, b.total_reads),
+        t1 = time.perf_counter()
+        c1 = perf.counters()
+        fb, n = (c1.get(k, 0) - c0.get(k, 0)
+                 for k in ("backend.fallback_reads", "backend.reads"))
+        return dict(seconds=t1 - t0, fallback_pct=100 * fb / max(1, n),
                     launches=self.cs.counts())
 
     def start(self):

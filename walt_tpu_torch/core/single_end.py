@@ -9,6 +9,7 @@ replayed per read (walt_tpu_torch.host.replay) so the output is byte-identical.
 
 from __future__ import annotations
 
+import itertools
 import sys
 import time
 
@@ -102,12 +103,12 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
         import numpy as np
         from concurrent.futures import ThreadPoolExecutor
 
-        def map_batch(batch):
+        def map_batch(batch, i):
             from walt_tpu_torch.core.errors import (
                 degraded_batches, is_oom_error,
             )
 
-            with perf.stage("device_map"):
+            with perf.stage("device_map", batch=i):
                 codes, lens = batch.packed()
                 try:
                     v_pos, v_times, v_minus, v_mm, fb_any = backend.map_single_end(
@@ -134,7 +135,7 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
 
         from walt_tpu_torch import native, perf
 
-        def emit_batch(batch, mapped):
+        def emit_batch(batch, mapped, i):
             codes, lens, v_pos, v_times, v_minus, v_mm, fb_any = mapped
 
             def replay_one(i):
@@ -150,7 +151,9 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
                 )
 
             todo = np.flatnonzero(fb_any)
-            with perf.stage("host_fallback"):
+            perf.count("driver.reads", len(lens))
+            perf.count("driver.reads_host", int(todo.size))
+            with perf.stage("host_fallback", batch=i):
                 got = (
                     native.se_exact(codes[todo], lens[todo], tables,
                                     ag_wildcard, b, max_mismatches, pattern)
@@ -164,35 +167,38 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
                         v_times[i] = bm.times
                         v_minus[i] = bm.strand == "-"
                         v_mm[i] = bm.mismatch
-            with perf.stage("host_emit"):
+            with perf.stage("host_emit", batch=i):
                 emit.write_single_batch(
                     v_pos, v_times, v_minus, v_mm, batch, genome_meta,
                     ag_wildcard, sam, ambiguous, unmapped, fout, famb, funm,
                     stat, pattern.min_read_len,
                 )
 
+        # Batch i's spans carry i on both threads; map_wait is the main
+        # thread blocked on the mapper.
+        def finish(pb, pfut, i):
+            nonlocal reads_done
+            with perf.stage("map_wait", batch=i):
+                mapped = pfut.result()
+            emit_batch(pb, mapped, i)
+            reads_done += len(pb)
+            if ckpt is not None:
+                ckpt.save(stat, files, reads_done)
+
         with ThreadPoolExecutor(1) as ex, perf.profiler_trace():
             prev = None
-            while True:
-                with perf.stage("host_parse"):
+            for i in itertools.count():
+                with perf.stage("host_parse", batch=i):
                     batch = load_batch(lines, batch_size, adaptor.encode())
                 n = len(batch)
-                fut = ex.submit(map_batch, batch) if n else None
+                fut = ex.submit(map_batch, batch, i) if n else None
                 if prev is not None:
-                    pb, pfut = prev
-                    emit_batch(pb, pfut.result())
-                    reads_done += len(pb)
-                    if ckpt is not None:
-                        ckpt.save(stat, files, reads_done)
-                prev = (batch, fut) if n else None
+                    finish(*prev)
+                prev = (batch, fut, i) if n else None
                 if n < batch_size:
                     break
             if prev is not None:
-                pb, pfut = prev
-                emit_batch(pb, pfut.result())
-                reads_done += len(pb)
-                if ckpt is not None:
-                    ckpt.save(stat, files, reads_done)
+                finish(*prev)
         lines.close()
         fout.close()
         for f in (famb, funm):

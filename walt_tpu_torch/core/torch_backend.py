@@ -40,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import SeedPattern
 from walt_tpu_torch.core import refmap
 from walt_tpu_torch.core.errors import HbmBudgetError
@@ -155,8 +156,6 @@ class TorchBackend:
         #: sets 2, process_paired_end 4); the budget is split evenly across
         #: tables not yet built
         self.table_budget_hint = 0
-        self.fallback_reads = 0
-        self.total_reads = 0
         #: the key-structure rung each built table took ("uniq", "key16",
         #: "u32 word0" or "3-word"), by table name (:data:`TABLE_NAMES`),
         #: for reports
@@ -454,24 +453,28 @@ class TorchBackend:
 
     def _chunks(self, codes: np.ndarray, lens: np.ndarray,
                 pattern: SeedPattern, chunk: int | None = None):
-        """Pack reads and lazily yield fixed-shape (preads, lens) chunks on
-        the device, from a short ladder of chunk shapes (small_chunk, x4
-        steps, chunk/2, chunk) so batch tails do not pay a full chunk; tiers
-        with a large verify slab pass an explicit small ``chunk``.  On a mesh
-        every chunk shape is a multiple of dp."""
+        """Pack reads (the ``backend.pack`` span), then lazily yield
+        fixed-shape (preads, lens) chunks on the device, from a short ladder
+        of chunk shapes (small_chunk, x4 steps, chunk/2, chunk) so batch
+        tails do not pay a full chunk; tiers with a large verify slab pass
+        an explicit small ``chunk``.  On a mesh every chunk shape is a
+        multiple of dp.  The bytes uploaded are counted under
+        ``backend.h2d_bytes``."""
         n = codes.shape[0]
         Lmax = _round_up(max(int(codes.shape[1]), pattern.min_read_len),
                          LEN_PAD)
         W = Lmax // 16
-        packed = packing.pack_codes_np(
-            np.pad(codes, ((0, 0), (0, Lmax - codes.shape[1])))
-        )
-        # a read shorter than key_span hashes lanes past its end: base code
-        # 0 there, as on the exact host paths (the batch pads with PAD_CODE)
-        short = np.flatnonzero(lens < pattern.key_span)
-        if short.size:
-            packed[short] = packing.clear_past_len_np(packed[short],
-                                                      lens[short])
+        with perf.stage("backend.pack"):
+            packed = packing.pack_codes_np(
+                np.pad(codes, ((0, 0), (0, Lmax - codes.shape[1])))
+            )
+            # a read shorter than key_span hashes lanes past its end: base
+            # code 0 there, as on the exact host paths (the batch pads with
+            # PAD_CODE)
+            short = np.flatnonzero(lens < pattern.key_span)
+            if short.size:
+                packed[short] = packing.clear_past_len_np(packed[short],
+                                                          lens[short])
         ladder = [self.small_chunk]
         while ladder[-1] * 4 < self.chunk:
             ladder.append(ladder[-1] * 4)
@@ -479,18 +482,23 @@ class TorchBackend:
             ladder.append(self.chunk // 2)
         ladder.append(self.chunk)
         ladder = [_round_up(c, self._dp) for c in ladder]
-        a = 0
-        while a < n:
-            c = _round_up(chunk, self._dp) if chunk is not None else next(
-                (s for s in ladder if n - a <= s), ladder[-1])
-            z = min(a + c, n)
-            pc = np.zeros((c, W), dtype=np.uint32)
-            pc[: z - a] = packed[a:z]
-            pl = np.zeros(c, dtype=np.int32)
-            pl[: z - a] = lens[a:z]
-            yield (a, z, packing.from_np(pc, self.device),
-                   torch.from_numpy(pl).to(self.device))
-            a = z
+
+        def upload():
+            a = 0
+            while a < n:
+                c = _round_up(chunk, self._dp) if chunk is not None else next(
+                    (s for s in ladder if n - a <= s), ladder[-1])
+                z = min(a + c, n)
+                pc = np.zeros((c, W), dtype=np.uint32)
+                pc[: z - a] = packed[a:z]
+                pl = np.zeros(c, dtype=np.int32)
+                pl[: z - a] = lens[a:z]
+                perf.count("backend.h2d_bytes", pc.nbytes + pl.nbytes)
+                yield (a, z, packing.from_np(pc, self.device),
+                       torch.from_numpy(pl).to(self.device))
+                a = z
+
+        return upload()
 
     @staticmethod
     def _to_host(tensors):
@@ -506,10 +514,11 @@ class TorchBackend:
         is per thread, and the drivers call from a worker thread."""
         devices = (self.mesh.distinct() if self.mesh is not None
                    else [self.device])
-        for d in devices:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        return [h.numpy() for h in host]
+        with perf.stage("backend.sync"):
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            return [h.numpy() for h in host]
 
     # ---- device steps: graph replays on the card (ops/graphs) ----------
     def se_step(self, preads, lens, b: int, max_mm: int, tables, **kw):
@@ -582,22 +591,27 @@ class TorchBackend:
                 wl_factor=pipeline.WL_FACTOR):
             m = codes_.shape[0]
             spans, results = [], []
-            for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
-                results.extend(self._to_host([self.se_step(
-                    pc, pl, b, max_mismatches, tuple(devs),
-                    pattern_name=pattern.name, ag_wildcard=ag_wildcard,
-                    search_bits=tuple(bits), verify_slab=slab,
-                    cand_slab=cand_slab or self.cand_slab, seeds=seeds,
-                    wl_factor=wl_factor, exact_b=b < slab,
-                    uniq_bits=tuple(ubits),
-                    full_mask=self._full_mask(lens_[a:z], pattern),
-                )]))
-                spans.append((a, z))
+            chunks = self._chunks(codes_, lens_, pattern, chunk)
+            with perf.stage("backend.launch"):
+                for a, z, pc, pl in chunks:
+                    results.extend(self._to_host([self.se_step(
+                        pc, pl, b, max_mismatches, tuple(devs),
+                        pattern_name=pattern.name, ag_wildcard=ag_wildcard,
+                        search_bits=tuple(bits), verify_slab=slab,
+                        cand_slab=cand_slab or self.cand_slab, seeds=seeds,
+                        wl_factor=wl_factor, exact_b=b < slab,
+                        uniq_bits=tuple(ubits),
+                        full_mask=self._full_mask(lens_[a:z], pattern),
+                    )]))
+                    spans.append((a, z))
             out = [np.empty(m, t) for t in
                    (np.uint32, np.int32, bool, np.int32, bool)]
-            for (a, z), r in zip(spans, self._wait(results)):
-                for o, x in zip(out, se_fold.unpack_se_result(r[: z - a])):
-                    o[a:z] = x
+            host = self._wait(results)
+            with perf.stage("backend.decode"):
+                for (a, z), r in zip(spans, host):
+                    for o, x in zip(out,
+                                    se_fold.unpack_se_result(r[: z - a])):
+                        o[a:z] = x
             return out
 
         def merge(into, idx, vals):
@@ -654,8 +668,8 @@ class TorchBackend:
                 merge(out, todo,
                       run(codes[todo], lens[todo], None, slab,
                           cand_slab=cand, chunk=chunk, wl_factor=3 * slab))
-        self.total_reads += n
-        self.fallback_reads += int(out[4].sum())
+        perf.count("backend.reads", n)
+        perf.count("backend.fallback_reads", int(out[4].sum()))
         return out
 
     # ---- paired-end mate step ----------------------------------------------
@@ -670,28 +684,31 @@ class TorchBackend:
         A device out-of-memory error is raised as HbmBudgetError.
         """
         with _oom_as_budget_error():
-            devs, bits, ubits = [], [], []
-            nkw = self._needed_key_words(b)
-            for g, ht in tables:
-                dt, dev = self._device_table(g, ht, pattern, nkw, wide_kw=True,
-                                             ag_wildcard=ag_wildcard)
-                devs.append(dev)
-                bits.append(dt.max_bucket_bits)
-                ubits.append(dt.uniq_bits)
-            slab = self.pe_verify_slab or self.verify_slab_t1
-            spans, results = [], []
-            for a, z, pc, pl in self._chunks(codes, lens, pattern):
-                results.extend(self._to_host(self.mate_step(
-                    pc, pl, b, max_mismatches, tuple(devs),
-                    pattern_name=pattern.name, ag_wildcard=ag_wildcard,
-                    search_bits=tuple(bits), verify_slab=slab,
-                    cand_slab=self.cand_slab,
-                    wl_factor=self.pe_wl or self._wl1, exact_b=b < slab,
-                    flat_factor=self.pe_flat_factor or pe_map.FLAT_FACTOR,
-                    uniq_bits=tuple(ubits),
-                    full_mask=self._full_mask(lens[a:z], pattern),
-                )))
-                spans.append((a, z))
+            chunks = self._chunks(codes, lens, pattern)
+            with perf.stage("backend.launch"):
+                devs, bits, ubits = [], [], []
+                nkw = self._needed_key_words(b)
+                for g, ht in tables:
+                    dt, dev = self._device_table(g, ht, pattern, nkw,
+                                                 wide_kw=True,
+                                                 ag_wildcard=ag_wildcard)
+                    devs.append(dev)
+                    bits.append(dt.max_bucket_bits)
+                    ubits.append(dt.uniq_bits)
+                slab = self.pe_verify_slab or self.verify_slab_t1
+                spans, results = [], []
+                for a, z, pc, pl in chunks:
+                    results.extend(self._to_host(self.mate_step(
+                        pc, pl, b, max_mismatches, tuple(devs),
+                        pattern_name=pattern.name, ag_wildcard=ag_wildcard,
+                        search_bits=tuple(bits), verify_slab=slab,
+                        cand_slab=self.cand_slab,
+                        wl_factor=self.pe_wl or self._wl1, exact_b=b < slab,
+                        flat_factor=self.pe_flat_factor or pe_map.FLAT_FACTOR,
+                        uniq_bits=tuple(ubits),
+                        full_mask=self._full_mask(lens[a:z], pattern),
+                    )))
+                    spans.append((a, z))
             return codes.shape[0], spans, results
 
     def map_mate_slabs_finish(self, handle):
@@ -706,9 +723,10 @@ class TorchBackend:
         n, spans, host = handle
         with _oom_as_budget_error():
             host = self._wait(host)
-        streams, fallback = self._decode_mate(spans, host, n)
-        self.total_reads += n
-        self.fallback_reads += int(fallback.sum())
+        with perf.stage("backend.decode"):
+            streams, fallback = self._decode_mate(spans, host, n)
+        perf.count("backend.reads", n)
+        perf.count("backend.fallback_reads", int(fallback.sum()))
         return streams, fallback
 
     def _decode_mate(self, spans, host, n: int):
@@ -839,15 +857,19 @@ class TorchBackend:
                 wl_factor=pipeline.WL_FACTOR):
             m = codes_.shape[0]
             spans, results = [], []
-            for a, z, pc, pl in self._chunks(codes_, lens_, pattern, chunk):
-                kw = dict(pattern_name=pattern.name, ag_wildcard=ag_wildcard,
-                          search_bits=dt.max_bucket_bits, verify_slab=slab,
-                          cand_slab=C, wl_factor=wl_factor, exact_b=b < slab,
-                          uniq_bits=dt.uniq_bits,
-                          full_mask=self._full_mask(lens_[a:z], pattern))
-                results.extend(self._to_host(
-                    self.strand_step(pc, pl, b, max_mismatches, dev, **kw)))
-                spans.append((a, z))
+            chunks = self._chunks(codes_, lens_, pattern, chunk)
+            with perf.stage("backend.launch"):
+                for a, z, pc, pl in chunks:
+                    kw = dict(pattern_name=pattern.name,
+                              ag_wildcard=ag_wildcard,
+                              search_bits=dt.max_bucket_bits,
+                              verify_slab=slab, cand_slab=C,
+                              wl_factor=wl_factor, exact_b=b < slab,
+                              uniq_bits=dt.uniq_bits,
+                              full_mask=self._full_mask(lens_[a:z], pattern))
+                    results.extend(self._to_host(self.strand_step(
+                        pc, pl, b, max_mismatches, dev, **kw)))
+                    spans.append((a, z))
             out = (
                 np.empty((m, C), dtype=np.int8),
                 np.empty((m, C), dtype=np.uint32),
@@ -872,8 +894,8 @@ class TorchBackend:
                        wl_factor=3 * slab)
             for o, v in zip(out, vals):
                 o[todo] = v
-        self.total_reads += n
-        self.fallback_reads += int(out[4].sum())
+        perf.count("backend.reads", n)
+        perf.count("backend.fallback_reads", int(out[4].sum()))
         return out
 
     def map_strand(self, codes: np.ndarray, lens: np.ndarray, genome: Genome,

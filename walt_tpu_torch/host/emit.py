@@ -188,72 +188,63 @@ def write_single_batch(pos, times, minus, mm, batch, genome: Genome,
     mapping (searchsorted) and coordinate flip run once over the whole batch
     instead of per read.  ``pos/times/minus/mm`` are the BestMatch arrays
     from the device fold (shorts and unmapped reads carry times == 0).
+    Spans: ``host_emit.prep`` (the NumPy part) and ``host_emit.native``
+    (formatting and write).
     """
-    n = pos.shape[0]
-    rlens = batch.lengths().astype(np.int64)
-    start_index = genome.start_index.astype(np.int64)
-    chr_id = np.searchsorted(start_index, pos.astype(np.int64), side="right") - 1
-    start = pos.astype(np.int64) - start_index[chr_id]
-    start = np.where(
-        minus, genome.lengths.astype(np.int64)[chr_id] - start - rlens, start
-    )
-    short = rlens < min_read_len
+    from walt_tpu_torch import perf
 
-    stat.total_reads += n
-    stat.unmapped += int((times == 0).sum())
-    stat.unique += int((times == 1).sum())
-    stat.ambiguous += int((times >= 2).sum())
-    stat.num_of_short += 2 * int(short.sum())
+    with perf.stage("host_emit.prep"):
+        n = pos.shape[0]
+        rlens = batch.lengths().astype(np.int64)
+        start_index = genome.start_index.astype(np.int64)
+        chr_id = np.searchsorted(start_index, pos.astype(np.int64),
+                                 side="right") - 1
+        start = pos.astype(np.int64) - start_index[chr_id]
+        start = np.where(
+            minus, genome.lengths.astype(np.int64)[chr_id] - start - rlens,
+            start
+        )
+        short = rlens < min_read_len
 
-    if not sam and batch.native is not None:
+        stat.total_reads += n
+        stat.unmapped += int((times == 0).sum())
+        stat.unique += int((times == 1).sum())
+        stat.ambiguous += int((times >= 2).sum())
+        stat.num_of_short += 2 * int(short.sum())
+        if batch.native is not None:
+            buf, noff, nlen, qoff, qlen, seqbytes = batch.native
+            cnames = [s.encode() for s in genome.names]
+            lens32 = np.asarray([len(s) for s in cnames], dtype=np.int32)
+            offs = np.zeros(len(cnames), dtype=np.int64)
+            if len(cnames) > 1:
+                np.cumsum(lens32[:-1], out=offs[1:])
+            blob_a = np.frombuffer(b"".join(cnames), dtype=np.uint8)
+            rows = (buf, noff, nlen, qoff, qlen, seqbytes,
+                    np.ascontiguousarray(batch.lengths(), dtype=np.int32),
+                    np.ascontiguousarray(times, dtype=np.int32),
+                    np.ascontiguousarray(minus).view(np.uint8),
+                    np.ascontiguousarray(start, dtype=np.int64),
+                    np.ascontiguousarray(mm, dtype=np.int32),
+                    np.ascontiguousarray(chr_id, dtype=np.int32),
+                    blob_a, offs, lens32)
+            for f in (fout, famb, funm):
+                if f is not None:
+                    f.flush()
+
+    if batch.native is not None:
         from walt_tpu_torch import native
 
-        buf, noff, nlen, qoff, qlen, seqbytes = batch.native
-        cnames = [s.encode() for s in genome.names]
-        lens32 = np.asarray([len(s) for s in cnames], dtype=np.int32)
-        offs = np.zeros(len(cnames), dtype=np.int64)
-        if len(cnames) > 1:
-            np.cumsum(lens32[:-1], out=offs[1:])
-        blob_a = np.frombuffer(b"".join(cnames), dtype=np.uint8)
-        for f in (fout, famb, funm):
-            if f is not None:
-                f.flush()
-        ok = native.mr_emit(
-            fout.fileno(), famb.fileno() if famb is not None else -1,
-            funm.fileno() if funm is not None else -1,
-            buf, noff, nlen, qoff, qlen, seqbytes,
-            np.ascontiguousarray(batch.lengths(), dtype=np.int32),
-            np.ascontiguousarray(times, dtype=np.int32),
-            np.ascontiguousarray(minus).view(np.uint8),
-            np.ascontiguousarray(start, dtype=np.int64),
-            np.ascontiguousarray(mm, dtype=np.int32),
-            np.ascontiguousarray(chr_id, dtype=np.int32),
-            blob_a, offs, lens32, ag_wildcard,
-        )
-        if ok:
-            return
-
-    if sam and batch.native is not None:
-        from walt_tpu_torch import native
-
-        buf, noff, nlen, qoff, qlen, seqbytes = batch.native
-        cnames = [s.encode() for s in genome.names]
-        lens32 = np.asarray([len(s) for s in cnames], dtype=np.int32)
-        offs = np.zeros(len(cnames), dtype=np.int64)
-        if len(cnames) > 1:
-            np.cumsum(lens32[:-1], out=offs[1:])
-        blob_a = np.frombuffer(b"".join(cnames), dtype=np.uint8)
-        fout.flush()
-        ok = native.sam_emit(
-            fout.fileno(), buf, noff, nlen, qoff, qlen, seqbytes,
-            np.ascontiguousarray(batch.lengths(), dtype=np.int32),
-            np.ascontiguousarray(times, dtype=np.int32),
-            np.ascontiguousarray(minus).view(np.uint8),
-            np.ascontiguousarray(start, dtype=np.int64),
-            np.ascontiguousarray(mm, dtype=np.int32),
-            np.ascontiguousarray(chr_id, dtype=np.int32),
-            blob_a, offs, lens32, ambiguous, unmapped,
-        )
+        with perf.stage("host_emit.native"):
+            if sam:
+                ok = native.sam_emit(fout.fileno(), *rows, ambiguous,
+                                     unmapped)
+            else:
+                ok = native.mr_emit(
+                    fout.fileno(),
+                    famb.fileno() if famb is not None else -1,
+                    funm.fileno() if funm is not None else -1,
+                    *rows, ag_wildcard,
+                )
         if ok:
             return
 

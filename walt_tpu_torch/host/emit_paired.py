@@ -93,13 +93,29 @@ def write_pair_batch(genome: Genome, fin, b1, b2, lens1, lens2,
     (NumPy), line splicing/formatting in walt_tpu_torch.native (fastio.cpp
     pe_emit_batch / pe_sam_emit_batch).  Returns False when the native batch
     data or library is unavailable (caller falls back to the per-pair loop).
+    Spans: ``host_emit.prep`` (the NumPy part) and ``host_emit.native``
+    (formatting and write).
     """
-    import numpy as np
-
-    from walt_tpu_torch import native
+    from walt_tpu_torch import native, perf
 
     if b1.native is None or b2.native is None or native.get_lib() is None:
         return False
+    with perf.stage("host_emit.prep"):
+        call = _pair_batch_call(genome, fin, b1, b2, lens1, lens2,
+                                frag_range, stat, fouts, pbat, sam)
+    with perf.stage("host_emit.native"):
+        return call()
+
+
+def _pair_batch_call(genome: Genome, fin, b1, b2, lens1, lens2,
+                     frag_range: int, stat, fouts, pbat: bool, sam: bool):
+    """:func:`write_pair_batch`'s NumPy preparation: the stats and the
+    arrays of the native emitter, whose call it returns."""
+    import functools
+
+    import numpy as np
+
+    from walt_tpu_torch import native
 
     code = fin["code"]
     n = code.shape[0]
@@ -167,8 +183,8 @@ def write_pair_batch(genome: Genome, fin, b1, b2, lens1, lens2,
                 ).view(np.uint8)
         fragd = c(np.where(uniq, fin["frag"], 0).astype(np.int32))
         fouts["out"].flush()
-        return native.pe_sam_emit(
-            fouts["out"].fileno(), b1.native, b2.native,
+        return functools.partial(
+            native.pe_sam_emit, fouts["out"].fileno(), b1.native, b2.native,
             c(lens1, dtype=np.int32), c(lens2, dtype=np.int32),
             fin["code"], fragd,
             (t1d, s1d, c1d, m1d, mi1), (t2d, s2d, c2d, m2d, mi2),
@@ -186,8 +202,8 @@ def write_pair_batch(genome: Genome, fin, b1, b2, lens1, lens2,
             h.flush()
             fds.append(h.fileno())
 
-    return native.pe_emit(
-        fds, b1.native, b2.native,
+    return functools.partial(
+        native.pe_emit, fds, b1.native, b2.native,
         c(lens1, dtype=np.int32), c(lens2, dtype=np.int32), fin,
         (chr1u, c(s1), c(s1 + l1), c(s2), c(s2 + l2), plus),
         ((c(bmt[:, 0]), c(st1), c1s, c(bmm[:, 0]),

@@ -202,26 +202,32 @@ def load_batch(lines: FgetsLines, n_reads: int, adaptor: bytes = b"") -> ReadBat
 
 
 def _load_batch_native(lines: FgetsLines, n_reads: int):
-    """Native single-pass parse (walt_tpu_torch.native.fastio); None -> fall back."""
-    from walt_tpu_torch import native
+    """Native single-pass parse (walt_tpu_torch.native.fastio); None -> fall
+    back.  Spans: ``host_parse.fill`` (the stream reads and the buffer's
+    growth and trim) and ``host_parse.native`` (the parse and the batch)."""
+    from walt_tpu_torch import native, perf
 
     if native.get_lib() is None:
         return None
-    lines.fill(4 * n_reads)
+    with perf.stage("host_parse.fill"):
+        lines.fill(4 * n_reads)
     buf = lines._buf
     if not buf:
         return ReadBatch(names=[], seqs=[], quals=[])
-    parsed = native.fastq_parse(buf, n_reads)
-    if parsed is None:
-        return None
-    consumed, codes, seqbytes, slens, noff, nlen, qoff, qlen = parsed
-    if consumed == 0:
-        return ReadBatch(names=[], seqs=[], quals=[])
-    lines.take_buffer(consumed)
-    return ReadBatch(
-        _codes=codes, _lens=slens,
-        _native=(buf, noff, nlen, qoff, qlen, seqbytes),
-    )
+    with perf.stage("host_parse.native"):
+        parsed = native.fastq_parse(buf, n_reads)
+        if parsed is None:
+            return None
+        consumed, codes, seqbytes, slens, noff, nlen, qoff, qlen = parsed
+        if consumed == 0:
+            return ReadBatch(names=[], seqs=[], quals=[])
+        batch = ReadBatch(
+            _codes=codes, _lens=slens,
+            _native=(buf, noff, nlen, qoff, qlen, seqbytes),
+        )
+    with perf.stage("host_parse.fill"):
+        lines.take_buffer(consumed)
+    return batch
 
 
 def _load_batch_fast(lines: FgetsLines, n_reads: int):

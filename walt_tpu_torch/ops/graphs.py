@@ -32,6 +32,10 @@ Between the warm-up and the capture the caching allocator's free blocks
 are handed back (``torch.cuda.empty_cache``), so a step's memory is its
 pool and not the pool plus the warm-up's blocks.
 
+Each new entry (a capture on the card, the stand-in's first call on the
+CPU) adds one to the ``graphs.captures`` counter of ``walt_tpu_torch.perf``:
+one inside a timed window is a step built again.
+
 The fused verify stage counts its launches in Python
 (``verify.count_launch``), which runs at capture and not at replay: the
 warm-up and the capture count into a tally (``verify.launch_tally``), and
@@ -54,6 +58,7 @@ import threading
 
 import torch
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.ops import verify
 
 #: captures in this process run one at a time (the caching allocator then
@@ -157,6 +162,7 @@ class StepCache:
                 entry = _Entry(None, None, out, {}, resident, lane)
                 with self._lock:
                     self._entries[key] = entry
+                perf.count("graphs.captures")
                 return out
             got = []
             _spec(out, got)
@@ -170,6 +176,7 @@ class StepCache:
                                   resident)
             with self._lock:
                 self._entries[key] = entry
+            perf.count("graphs.captures")
         else:
             for dst, src in zip(entry.static, leaves):
                 dst.copy_(src, non_blocking=True)

@@ -7,7 +7,10 @@ On seeded inputs, exact equality throughout:
   other, and both write the same bytes;
 - ``index.convert``: a walt_tpu ``Genome``/``HashTable`` handed over as
   arrays becomes the port's types with the same fields;
-- ``host.fastq.load_batch``: codes, lengths, names, sequences, qualities;
+- ``host.fastq.load_batch``: codes, lengths, names, sequences, qualities,
+  also batch by batch over streams that return short reads, against the
+  exact line-by-line loop too; a batch's buffer stays its own after the
+  next batch is loaded, and the fill's copy counters stay near one;
 - ``host.replay_vec.replay_single_batch`` (the NumPy spec of the device
   fold) on seeded candidate slabs, and the port's device fold against it;
 - the emitted MR and SAM lines and ``.mapstats`` of the SE and PE drivers
@@ -18,6 +21,7 @@ On seeded inputs, exact equality throughout:
   into one fresh directory at the same moment all load it.
 """
 
+import io
 import os
 import subprocess
 import sys
@@ -175,6 +179,161 @@ def test_load_batch_matches_walt_tpu(se_fastq, adaptor):
     assert got.seqs == want.seqs
     assert got.quals == want.quals
     assert len(got) > 100
+
+
+class _ShortReads:
+    """A stream that hands back at most ``size`` bytes per read, as a pipe
+    may, so records, lines and the ``\n+\n`` separator straddle chunks."""
+
+    def __init__(self, data: bytes, size: int):
+        self._data, self._pos, self._size = data, 0, size
+
+    def read(self, n=-1):
+        k = self._size if n is None or n < 0 else min(n, self._size)
+        out = self._data[self._pos: self._pos + k]
+        self._pos += len(out)
+        return out
+
+    def close(self):
+        pass
+
+
+def _fastq_text(n, seed, long_at=None, empty_at=None, trailing=True):
+    """``n`` FASTQ records of 20-120 bases (some N and lower-case bases,
+    names with a comment): record ``long_at`` holds a 1,200-byte sequence
+    and quality line, an empty line follows record ``empty_at``, and the
+    text ends without its last newline unless ``trailing``."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        L = 1200 if i == long_at else int(rng.integers(20, 121))
+        seq = bytes(rng.choice(np.frombuffer(b"ACGTACGTACGTNa", np.uint8),
+                               L))
+        qual = bytes(rng.integers(33, 74, L).astype(np.uint8))
+        recs.append(b"@r%d x:%d\n%s\n+\n%s\n" % (i, i % 7, seq, qual))
+        if i == empty_at:
+            recs.append(b"\n")
+    text = b"".join(recs)
+    return text if trailing else text[:-1]
+
+
+def _all_batches(load, lines, n):
+    out = []
+    while True:
+        b = load(lines, n)
+        if not len(b):
+            return out
+        out.append(b)
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g.packed(), w.packed()):
+            np.testing.assert_array_equal(a, b)
+        assert g.names == w.names
+        assert g.seqs == w.seqs
+        assert g.quals == w.quals
+
+
+# (records, read size (None: as much as asked), batch, text options)
+_STREAMS = {
+    "short_reads": (300, 7, 64, {}),
+    "eof_newline": (101, 13, 40, {}),
+    "eof_no_newline": (101, 13, 40, dict(trailing=False)),
+    "long_line": (90, 11, 40, dict(long_at=45)),
+    "empty_line": (90, 5, 40, dict(empty_at=50)),
+    "leftover_3_batches": (120, None, 40, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_STREAMS))
+def test_load_batch_over_a_stream_matches_walt_tpu(monkeypatch, case):
+    """Every batch of a stream read in small chunks equals walt_tpu's
+    ``load_batch`` on the whole text and the port's exact line-by-line
+    loop over the same chunks; where the native parse refuses a buffer,
+    the NumPy path is handed that very buffer.  (``long_line`` ends
+    mid-record: the split lines leave two lines past the last record.)"""
+    n_recs, size, n, opts = _STREAMS[case]
+    text = _fastq_text(n_recs, seed=len(case), **opts)
+
+    def stream():
+        return io.BytesIO(text) if size is None else _ShortReads(text, size)
+
+    # walt_tpu's NumPy and exact paths: its native scan drops the records
+    # of a batch that ends mid-record at EOF (F10)
+    monkeypatch.setattr(jfastq, "_load_batch_native", lambda lines, n: None)
+    want = _all_batches(jfastq.load_batch, jfastq.FgetsLines(io.BytesIO(text)),
+                        n)
+    refused, handed = [], []
+    real_parse, real_fast = tnative.fastq_parse, tfastq._load_batch_fast
+
+    def parse(buf, max_reads):
+        got = real_parse(buf, max_reads)
+        if got is None:
+            refused.append(buf)
+        return got
+
+    def fast(lines, n_reads):
+        handed.append(lines._buf)
+        return real_fast(lines, n_reads)
+
+    monkeypatch.setattr(tnative, "fastq_parse", parse)
+    monkeypatch.setattr(tfastq, "_load_batch_fast", fast)
+    got = _all_batches(tfastq.load_batch, tfastq.FgetsLines(stream()), n)
+    monkeypatch.undo()
+    slow = _all_batches(tfastq._load_batch_slow,
+                        tfastq.FgetsLines(stream()), n)
+    _same_batches(got, want)
+    _same_batches(slow, want)
+    assert sum(len(b) for b in want) == n_recs
+    if tnative.get_lib() is not None:
+        assert len(handed) == len(refused)
+        assert all(h is r for h, r in zip(handed, refused))
+        if "long_at" in opts or "empty_at" in opts:
+            assert refused
+
+
+def test_a_batch_keeps_its_buffer_after_the_next_is_loaded():
+    """Batch i's ``native`` buffer is immutable and unchanged after batch
+    i+1 is parsed, and its lazy names and qualities, first built then,
+    equal walt_tpu's."""
+    if tnative.get_lib() is None:
+        pytest.skip("g++ unavailable")
+    text = _fastq_text(150, seed=3)
+    want = _all_batches(jfastq.load_batch, jfastq.FgetsLines(io.BytesIO(text)),
+                        50)
+    lines = tfastq.FgetsLines(_ShortReads(text, 1000))
+    first = tfastq.load_batch(lines, 50)
+    buf = first.native[0]
+    kept = bytes(bytearray(buf))
+    second = tfastq.load_batch(lines, 50)
+    third = tfastq.load_batch(lines, 50)
+    assert isinstance(buf, bytes)
+    assert first.native[0] is buf and buf == kept
+    assert second.native[0] is not buf and third.native[0] is not buf
+    assert first.names == want[0].names
+    assert first.quals == want[0].quals
+    assert first.seqs == want[0].seqs
+
+
+@pytest.mark.parametrize("size", [None, 4096, 7], ids=["whole", "4k", "7"])
+def test_fill_copies_each_stream_byte_at_most_twice(size):
+    """Over a multi-batch stream the parse buffers take at most twice the
+    bytes read from the stream (``parse.buffer_bytes`` against
+    ``parse.stream_bytes``); a buffer grown by appends took about 26."""
+    from walt_tpu_torch import perf
+
+    text = _fastq_text(600, seed=9)
+    perf.reset()
+    lines = tfastq.FgetsLines(io.BytesIO(text) if size is None
+                              else _ShortReads(text, size))
+    got = _all_batches(tfastq.load_batch, lines, 100)
+    c = perf.counters()
+    perf.reset()
+    assert sum(len(b) for b in got) == 600
+    assert c["parse.stream_bytes"] == len(text)
+    assert len(text) <= c["parse.buffer_bytes"] <= 2 * len(text)
 
 
 def _read_all(paths):

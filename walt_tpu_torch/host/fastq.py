@@ -22,12 +22,24 @@ from __future__ import annotations
 
 import numpy as np
 
+from walt_tpu_torch import native, perf
 from walt_tpu_torch.constants import BASE_TO_CODE, CODE_TO_BASE, MAX_LINE_LENGTH, PAD_CODE
 from walt_tpu_torch.glibc_rand import GlibcRand
 
 _HEAD_LENGTH = 14  # util.hpp:189
 _SUFFICIENT_HEAD_MATCH = 11  # util.hpp:190
 _MIN_OVERLAP = 5  # util.hpp:191
+_MIN_READ = 1 << 12  # the least FgetsLines.fill asks the stream for
+
+
+def _newlines(buf, need: int):
+    """(newlines in ``buf`` counted up to ``need``, the offset just past the
+    last one counted): the native ``memchr`` walk, else NumPy."""
+    got = native.count_newlines(buf, need)
+    if got is None:
+        nl = np.flatnonzero(np.frombuffer(buf, dtype=np.uint8) == 10)[:need]
+        got = (nl.size, int(nl[-1]) + 1 if nl.size else 0)
+    return got
 
 
 class FgetsLines:
@@ -39,6 +51,7 @@ class FgetsLines:
         else:
             self._f = open(path_or_file, "rb")
         self._buf = b""
+        self._line_bytes = 0.0  # mean line length of the lines counted
 
     def close(self):
         self._f.close()
@@ -46,21 +59,48 @@ class FgetsLines:
     def fill(self, n_lines: int) -> int:
         """Buffer input until ``n_lines`` newlines are available (or EOF).
 
-        Returns the number of newlines buffered (may be less at EOF).
-        Consumes nothing; next_line() continues to work on the buffer.
+        Returns the newlines buffered, counted up to ``n_lines`` (fewer only
+        at EOF).  Consumes nothing; next_line() continues to work on the
+        buffer.  Linear in the batch's bytes: the stream is asked for the
+        rest of the batch at once (sized by the mean line length seen so
+        far), newlines are counted outside the interpreter, and the leftover
+        and the chunks are joined once into a fresh ``bytes`` buffer, which
+        the batch parsed from it keeps.  Counters: ``parse.stream_bytes``
+        (read from the stream) and ``parse.buffer_bytes`` (written into
+        parse buffers: each new buffer, each leftover take_buffer carries).
         """
-        count = self._buf.count(b"\n")
+        count, through = _newlines(self._buf, n_lines)
+        if count >= n_lines:
+            return count
+        pieces = [self._buf] if self._buf else []
+        size = len(self._buf)
         while count < n_lines:
-            chunk = self._f.read(1 << 20)
+            per_line = through / count if count else self._line_bytes
+            want = max(_MIN_READ, int((n_lines - count) * per_line * 17 / 16))
+            chunk = self._f.read(want)
             if not chunk:
                 break
-            self._buf += chunk
-            count += chunk.count(b"\n")
+            got, end = _newlines(chunk, n_lines - count)
+            if got:
+                count, through = count + got, size + end
+            pieces.append(chunk)
+            size += len(chunk)
+        if count:
+            self._line_bytes = through / count
+        if size > len(self._buf):
+            perf.count("parse.stream_bytes", size - len(self._buf))
+            self._buf = b"".join(pieces)
+            perf.count("parse.buffer_bytes", size)
         return count
 
     def take_buffer(self, n_bytes: int) -> None:
-        """Drop the first n_bytes of the buffer (fast path consumed them)."""
-        self._buf = self._buf[n_bytes:]
+        """Drop the first n_bytes of the buffer (fast path consumed them).
+
+        The leftover moves to a buffer of its own; the consumed one is left
+        unchanged to the batch that holds it."""
+        if n_bytes:
+            self._buf = self._buf[n_bytes:]
+            perf.count("parse.buffer_bytes", len(self._buf))
 
     def next_line(self):
         """One fgets call: up to MAX_LINE_LENGTH-1 bytes, through a newline.
@@ -77,6 +117,7 @@ class FgetsLines:
                 line, self._buf = self._buf[:limit], self._buf[limit:]
                 return line
             chunk = self._f.read(65536)
+            perf.count("parse.stream_bytes", len(chunk))
             if not chunk:
                 if self._buf:
                     line, self._buf = self._buf, b""
@@ -203,10 +244,9 @@ def load_batch(lines: FgetsLines, n_reads: int, adaptor: bytes = b"") -> ReadBat
 
 def _load_batch_native(lines: FgetsLines, n_reads: int):
     """Native single-pass parse (walt_tpu_torch.native.fastio); None -> fall
-    back.  Spans: ``host_parse.fill`` (the stream reads and the buffer's
-    growth and trim) and ``host_parse.native`` (the parse and the batch)."""
-    from walt_tpu_torch import native, perf
-
+    back.  Spans: ``host_parse.fill`` (the stream reads, the newline count,
+    the buffer's join and the leftover's carry) and ``host_parse.native``
+    (the parse and the batch)."""
     if native.get_lib() is None:
         return None
     with perf.stage("host_parse.fill"):

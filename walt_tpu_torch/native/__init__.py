@@ -120,6 +120,9 @@ def _load():
     ]
     lib.csr_fill.restype = None
     i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.count_newlines.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                   i64p]
+    lib.count_newlines.restype = ctypes.c_int64
     lib.fastq_scan.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, i32p,
     ]
@@ -218,6 +221,22 @@ def _load():
 
 def _ptr(a, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def count_newlines(buf, need: int):
+    """(newlines in ``buf`` counted up to ``need``, the offset just past the
+    last one counted) by a ``memchr`` walk with the interpreter lock
+    released (fastio.cpp), or None when the library is unavailable."""
+    import numpy as np
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    data = np.frombuffer(buf, dtype=np.uint8)
+    end = ctypes.c_int64()
+    n = lib.count_newlines(_ptr(data, ctypes.c_uint8), data.shape[0], need,
+                           ctypes.byref(end))
+    return int(n), int(end.value)
 
 
 def fastq_parse(buf: bytes, max_reads: int):

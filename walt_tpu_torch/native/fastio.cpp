@@ -137,6 +137,22 @@ int dio_write(int fd, const uint8_t* p, int64_t n) {
                       static_cast<size_t>(n));
 }
 
+// Newlines in buf[0, n), counted up to ``need``: whether the loader's
+// buffer holds a batch's lines (FgetsLines.fill).  *end is the offset just
+// past the last newline counted (0 when none).
+int64_t count_newlines(const uint8_t* buf, int64_t n, int64_t need,
+                       int64_t* end) {
+  int64_t count = 0, pos = 0;
+  while (count < need && pos < n) {
+    const void* nl = memchr(buf + pos, '\n', static_cast<size_t>(n - pos));
+    if (nl == nullptr) break;
+    pos = static_cast<const uint8_t*>(nl) - buf + 1;
+    ++count;
+  }
+  *end = pos;
+  return count;
+}
+
 // Pass 1: structure scan.  Returns 0 on fast-path success (outputs filled),
 // -1 when the buffer needs the exact Python fallback, 1 when the buffer is
 // empty.  consumed = bytes of complete records; n_reads; lmax = longest
@@ -155,7 +171,8 @@ int fastq_scan(const uint8_t* buf, int64_t n, int64_t max_reads,
     int line;
     for (line = 0; line < 4; ++line) {
       const void* nl = memchr(buf + pos, '\n', static_cast<size_t>(n - pos));
-      if (nl == nullptr) return reads && pos == n ? 0 : -1;  // EOF mid-record
+      // EOF mid-record: the exact loop keeps the whole records before it
+      if (nl == nullptr) return -1;
       int64_t e = static_cast<const uint8_t*>(nl) - buf;
       int64_t len = e - pos;  // content bytes
       if (len == 0 || len > kMaxLine - 2) return -1;

@@ -1,13 +1,15 @@
-"""The device trace of a window, reduced: busy time, time by device
-operation, idle gaps labelled by what the host was doing.
+"""The device trace of a window, reduced: busy time per card, time by
+device operation, idle gaps labelled by what the host was doing.
 
 ``torch.profiler`` records CPU and CUDA activity over the traced window.
-Busy time is the union of the device's operation intervals (kernels,
-copies, sets) that fall inside the window; idle is the rest of the window.
-A gap in the device's activity takes its label from the program's spans
-(``walt_tpu_torch.perf`` stages, kept with their thread by :class:`Spans`)
-and the harness's own ranges around its calls into the backend that were
-open at the gap's middle.
+A card's busy time is the union of its own operation intervals (kernels,
+copies, sets; keyed by the event's device index) that fall inside the
+window, and ``busy_s`` is the mean over the run's cards, so that on a mesh
+one card's work does not hide another's idle time.  An idle gap is a
+stretch of the window in which no card is busy.  It takes its label from
+the program's spans (``walt_tpu_torch.perf`` stages, kept with their
+thread by :class:`Spans`) and the harness's own ranges around its calls
+into the backend that were open at the gap's middle.
 """
 
 from __future__ import annotations
@@ -52,30 +54,42 @@ def _union(intervals):
     return out
 
 
-def reduce(prof, marker: str, spans: Spans, top: int = 10) -> dict:
-    """Reduce a finished profile whose window is the CPU range ``marker``.
-
-    Returns busy_s and window_s (the marker's length), device seconds by
-    operation name, and the ``breakdown``'s two lists."""
+def reduce(prof, marker: str, spans: Spans, cards=(), top: int = 10) -> dict:
+    """Reduce a finished profile whose window is the CPU range ``marker``
+    (see :func:`reduce_events`; ``cards``: the device indices of the run's
+    cards)."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
     win = next(e for e in events if e.name() == marker
                and e.device_type() == DeviceType.CPU)
-    w0, w1 = win.start_ns(), win.end_ns()
-    by_name, iv = {}, []
-    for e in events:
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        s, z = max(e.start_ns(), w0), min(e.end_ns(), w1)
+    return reduce_events([(e.name(), e.device_index(), e.start_ns(),
+                           e.end_ns()) for e in events
+                          if e.device_type() == DeviceType.CUDA],
+                         win.start_ns(), win.end_ns(), spans, cards, top)
+
+
+def reduce_events(events, w0: int, w1: int, spans: Spans, cards=(),
+                  top: int = 10) -> dict:
+    """Reduce device events (name, device index, start ns, end ns) over the
+    window [w0, w1).
+
+    Returns busy_s (the mean over ``cards``, and any other device that ran
+    an operation, of each one's busy seconds), busy_s_by_card, window_s,
+    device nanoseconds by operation name (summed over the cards), and the
+    ``breakdown``'s two lists."""
+    by_name, by_card = {}, {c: [] for c in cards}
+    for name, card, s, z in events:
+        s, z = max(s, w0), min(z, w1)
         if z <= s:
             continue
-        iv.append((s, z))
-        by_name[e.name()] = by_name.get(e.name(), 0) + (z - s)
-    busy = _union(iv)
-    busy_ns = sum(z - s for s, z in busy)
+        by_card.setdefault(card, []).append((s, z))
+        by_name[name] = by_name.get(name, 0) + (z - s)
+    busy_ns = {c: sum(z - s for s, z in _union(iv))
+               for c, iv in by_card.items()}
     gaps, prev = [], w0
-    for s, z in busy + [[w1, w1]]:
+    for s, z in _union(iv for ivs in by_card.values() for iv in ivs) + [
+            [w1, w1]]:
         if s > prev:
             gaps.append((prev, s))
         prev = max(prev, z)
@@ -87,7 +101,8 @@ def reduce(prof, marker: str, spans: Spans, top: int = 10) -> dict:
         labelled.append(["+".join(names) or "no span", (z - s) / 1e9])
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])
     return dict(
-        busy_s=busy_ns / 1e9, window_s=(w1 - w0) / 1e9,
-        device_ns_by_name=by_name,
+        busy_s=sum(busy_ns.values()) / (1e9 * max(1, len(busy_ns))),
+        busy_s_by_card={f"cuda:{c}": v / 1e9 for c, v in busy_ns.items()},
+        window_s=(w1 - w0) / 1e9, device_ns_by_name=by_name,
         breakdown=dict(device_ops=[[n[:200], v / 1e9] for n, v in ops[:top]],
                        idle_gaps=labelled))

@@ -1,24 +1,31 @@
 """One run of one cell: set-up, the measured window, the output check.
 
 Everything a cell is made of is found by name: ``BENCHMARK.json`` names the
-cell, its configuration's file (genome layout, seed pattern, flags), its
-traffic file ``portbench/traffic/<traffic>.json`` (read lengths, trimming,
-fragments, batch, pool, the check's sample) and its metrics, each read by
-``portbench/metrics/<name>.py``.  A new cell, configuration, traffic mix or
-metric is new files and entries, with no edit here.
+cell, its configuration's file (genome layout, seed pattern, flags, and
+``tp``, how many ways the index is split over the cell's cards; 1 when the
+file has no ``tp``), its traffic file ``portbench/traffic/<traffic>.json``
+(read lengths, trimming, fragments, batch, pool, the check's sample) and
+its metrics, each read by ``portbench/metrics/<name>.py``.  A new cell,
+configuration, traffic mix or metric is new files and entries, with no edit
+here.
 
 Set-up makes the inputs from the seed, builds what a user has before a
-mapping job (the genome's FASTA and the port's ``makedb`` index, once per
-checkout, in ``portbench/cache/``), makes one ``TorchBackend`` on one card
-(``cuda:0``, no mesh: every cell so far is a one-card cell), and maps
+mapping job (the synthetic genome and the port's ``makedb`` index of it,
+once per checkout, in ``portbench/cache/``; later runs load both), makes
+one ``TorchBackend`` over the cell's ``chips`` cards, and maps
 ``warm_batches`` batches through the driver, which places the tables and
-captures the steps' graphs.  ``setup_s`` is all of that but the making of
-the synthetic genome and read pool, which a user mapping a library does
-not pay.  The window
-then feeds whole ``-N`` batches of the cycled read pool to
-``process_single_end`` / ``process_paired_end`` until ``seconds`` have
-passed, and ends when the last output is written.  Reads come from an
-in-memory stream; the MR output goes to an anonymous in-memory file.
+captures the steps' graphs.  A one-card cell builds the backend on
+``cuda:0`` with no mesh.  A cell of ``chips`` C > 1 builds the port's mesh
+(``sharded.make_mesh`` over ``cuda:0 .. cuda:C-1`` at the configuration's
+tp, as ``cli --tp`` does): dp = C / tp rows of tp cards, so a tp cell and a
+dp cell (ROADMAP C1) differ only in their configuration's ``tp``.
+``setup_s`` is all of that but the making (or loading) of the synthetic
+genome and the making of the read pool, which a user mapping a library
+does not pay.  The window then feeds whole ``-N`` batches of the cycled
+read pool to ``process_single_end`` / ``process_paired_end`` until
+``seconds`` have passed, and ends when the last output is written.  Reads
+come from an in-memory stream; the MR output goes to an anonymous
+in-memory file.
 """
 
 from __future__ import annotations
@@ -108,11 +115,23 @@ def _sources_key(*parts) -> str:
     return h.hexdigest()[:16]
 
 
-def prepare_index(root: str, config: dict, genome: gen.Genome) -> str:
-    """The port's four-table index of the configuration's genome, built by
-    its ``index`` command once per checkout and kept in
+def config_tp(config: dict) -> int:
+    """How many ways the configuration splits its index (its ``tp``; 1
+    without the key)."""
+    tp = config.get("tp", 1)
+    if not isinstance(tp, int) or tp < 1:
+        raise Refusal(f"configuration {config['name']!r}: tp {tp!r} is not "
+                      "a whole number of 1 or more")
+    return tp
+
+
+def prepare_inputs(root: str, config: dict, mark=lambda stage: None):
+    """(genome, index path) of the configuration: the synthetic genome and
+    the port's four-table index of it, made once per checkout and kept in
     ``portbench/cache/<config>-<key>/``, the key taken from the
-    configuration, the generator and the port's index sources."""
+    configuration, the generator and the port's index sources.  A directory
+    without its ``ok`` marker is made again whole; one with it is loaded.
+    ``mark("genome")`` and ``mark("index")`` are called as each is ready."""
     import walt_tpu_torch
 
     port = os.path.dirname(os.path.abspath(walt_tpu_torch.__file__))
@@ -123,9 +142,15 @@ def prepare_index(root: str, config: dict, genome: gen.Genome) -> str:
     d = os.path.join(root, "portbench", "cache", f"{config['name']}-{key}")
     index = os.path.join(d, "genome.dbindex")
     if os.path.exists(os.path.join(d, "ok")):
-        return index
+        genome = gen.load_genome(d)
+        mark("genome")
+        mark("index")
+        return genome, index
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
+    genome = make_genome(config)
+    gen.save_genome(genome, d)
+    mark("genome")
     fasta = os.path.join(d, "genome.fa")
     gen.write_fasta(genome, fasta)
     # the user's offline makedb step, in a process of its own as a user
@@ -138,7 +163,26 @@ def prepare_index(root: str, config: dict, genome: gen.Genome) -> str:
                    cwd=os.path.dirname(port))
     os.remove(fasta)
     open(os.path.join(d, "ok"), "w").close()
-    return index
+    mark("index")
+    return genome, index
+
+
+def make_backend(chips: int, tp: int, device: str):
+    """The port's ``TorchBackend`` over the cell's ``chips`` cards
+    (``device`` "cuda"; the CPU tests pass "cpu" and get a virtual mesh of
+    ``chips`` CPU devices): on one card the backend of ``cuda:0`` with no
+    mesh, else ``sharded.make_mesh`` over the cards at ``tp``, which
+    divides ``chips``, with dp = chips / tp rows."""
+    from walt_tpu_torch.core.backends import get_backend
+    from walt_tpu_torch.parallel import sharded
+
+    if chips == 1:
+        return get_backend("torch", device=device + ":0" if device == "cuda"
+                           else device, mesh=None, tp=1)
+    cards = ([f"cuda:{i}" for i in range(chips)] if device == "cuda"
+             else [device] * chips)
+    return get_backend("torch", device=cards[0],
+                       mesh=sharded.make_mesh(cards, tp=tp), tp=tp)
 
 
 class Pool:
@@ -262,27 +306,29 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
 
     spec = load_spec(root)
     cell, config, traffic = find_cell(root, spec, workload)
+    chips, tp = int(cell["chips"]), config_tp(config)
+    if chips % tp:
+        raise Refusal(f"tp {tp} does not divide the cell's {chips} card(s)")
     marks = [("start", t_start), ("imports", time.perf_counter())]
-    genome = make_genome(config)
-    marks.append(("genome", time.perf_counter()))
-    index = prepare_index(root, config, genome)
-    marks.append(("index", time.perf_counter()))
+    genome, index = prepare_inputs(
+        root, config, lambda stage: marks.append((stage,
+                                                  time.perf_counter())))
     pool = Pool(genome, traffic, seed)
     marks.append(("pool", time.perf_counter()))
 
     from walt_tpu_torch import perf
     from walt_tpu_torch.core import errors
-    from walt_tpu_torch.core.backends import get_backend
     from walt_tpu_torch.core.paired_end import process_paired_end
     from walt_tpu_torch.core.single_end import process_single_end
 
-    backend = get_backend("torch", device=device + ":0" if device == "cuda"
-                          else device, mesh=None, tp=1)
+    backend = make_backend(chips, tp, device)
     used = (backend.mesh.distinct() if backend.mesh is not None
             else [backend.device])
-    if device == "cuda" and len(used) != int(cell["chips"]):
+    backend_mesh = (dict(backend.mesh.shape) if backend.mesh is not None
+                    else None)
+    if device == "cuda" and len(used) != chips:
         raise Refusal(f"the backend uses {len(used)} card(s), the cell "
-                      f"states {cell['chips']}")
+                      f"states {chips}")
     flags = config["flags"]
     pe = traffic["mode"] == "pe"
     N = int(traffic["batch"])
@@ -309,17 +355,6 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     warm.close()
     marks.append(("warm_up", time.perf_counter()))
 
-    # what the window's calls return: the fallback masks (share metrics)
-    fb = []
-    name = "map_mate_slabs_finish" if pe else "map_single_end"
-    real = getattr(backend, name)
-
-    def watched(*a, **k):
-        got = real(*a, **k)
-        fb.append(got[-1])
-        return got
-
-    setattr(backend, name, watched)
     if faults is not None:
         faults(backend)
     for k in errors.degraded_batches:
@@ -387,12 +422,12 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         peak, kind, count = 0, "cpu", 0
     tr = None
     if trace:
-        tr = devtrace.reduce(prof, "portbench.window", spans)
+        tr = devtrace.reduce(prof, "portbench.window", spans,
+                             [d.index for d in used if d.type == "cuda"])
         del prof
     data, stats = out.data(), out.stats()
     shutil.rmtree(tmp, ignore_errors=True)
     # free the program's state before the reference runs on the card
-    backend.__dict__.pop(name, None)
     for nm in ("map_single_end", "map_mate_slabs_begin",
                "map_mate_slabs_finish"):
         backend.__dict__.pop(nm, None)
@@ -402,15 +437,16 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    t_check = time.perf_counter()
     checked = outcheck.check(genome, config, traffic, pool, data, stats,
                              n_fed, seed, ref_device=str(dev))
+    check_s = time.perf_counter() - t_check
     if hasattr(data, "close"):
         data.close()
     out.close()
     probe = hostinfo.probe()
     run = dict(mode=traffic["mode"], n=n_fed, window_s=window_s,
-               setup_s=setup_s, peak_bytes=peak, spans=span_s, fb=fb,
-               trace=tr)
+               setup_s=setup_s, peak_bytes=peak, spans=span_s, trace=tr)
     kind_metrics = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in cell_metrics(spec, workload, kind_metrics):
@@ -430,7 +466,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     info = dict(setup_s=setup_s, window_s=window_s,
                 setup_split_s={k: round(v, 3) for k, v in split.items()},
                 inputs_s=round(inputs_s, 3), devices=[str(d) for d in used],
-                fed=n_fed,
+                mesh=backend_mesh, fed=n_fed,
                 batches=fed_streams[0].batches, degraded_batches=degraded,
                 spans_s={k: round(v, 3) for k, v in span_s.items()},
                 window_rusage={k: round(getattr(ru1, k) - getattr(ru0, k), 3)
@@ -438,9 +474,11 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                                          "ru_majflt", "ru_nvcsw",
                                          "ru_nivcsw")},
                 graphs_before=graphs_before, graphs_after=graphs_after,
-                unjudged=checked.get("unjudged", 0),
+                unjudged=checked.get("unjudged", 0), check_s=round(check_s, 3),
                 sampled=checked["sampled"], placement=hostinfo.placement(),
                 host_window=hostinfo.window(host0, host1), probe=probe)
+    if trace:
+        info["busy_s_by_card"] = tr["busy_s_by_card"]
     return result, info
 
 

@@ -13,8 +13,9 @@ beside its limit.  An earlier ``portbench-info`` line gives the run's
 set-up and window, the bytes it wrote and its peak resident memory; the
 last lines of standard error repeat the compared numbers.  A run exits
 non-zero, and prints no result, without a CUDA card (or with fewer than
-the cell asks for), without the program beside it, or when ``jax``,
-``jaxlib``, ``flax`` or ``walt_tpu`` is loaded in its process.
+the cell asks for), when the configuration's ``tp`` does not divide the
+cell's cards, without the program beside it, or when ``jax``, ``jaxlib``,
+``flax`` or ``walt_tpu`` is loaded in its process.
 """
 
 import time

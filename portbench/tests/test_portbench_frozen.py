@@ -101,8 +101,7 @@ def _exact_host_outputs(root, cell, n, tmp):
     spec = harness.load_spec(root)
     _, config, traffic = harness.find_cell(root, spec, cell)
     traffic = dict(traffic, pool=n)
-    genome = harness.make_genome(config)
-    index = harness.prepare_index(root, config, genome)
+    genome, index = harness.prepare_inputs(root, config)
     pool = harness.Pool(genome, traffic, 77)
     paths = []
     for m, (text, _) in enumerate(pool.text):

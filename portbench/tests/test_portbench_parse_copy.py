@@ -39,7 +39,7 @@ def test_reader_reports_nothing_without_the_counters(monkeypatch, counters):
     else:
         monkeypatch.setattr(perf, "counters", lambda: dict(counters))
     run = dict(mode="pe", n=1000, window_s=1.0, setup_s=1.0, peak_bytes=0,
-               spans={}, fb=[], trace=None)
+               spans={}, trace=None)
     assert harness.metric_reader(REPO, NAME)(run) is None
     assert harness.metric_reader(REPO, NAME)(dict(run, mode="se")) is None
 

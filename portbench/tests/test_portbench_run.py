@@ -35,6 +35,9 @@ def test_tiny_cell_is_correct(tiny_root, cell):
     assert result["attempted"] == info["fed"] > 0
     assert result["failed"] == 0
     assert "setup_s" in result["metrics"] or "breakdown" in result
+    if cell == "t.se_trim":
+        # the SE device share, from the backend's own counters
+        assert 0 < result["metrics"]["backend.device_share.se"]["value"] < 100
 
 
 def _halve_se(backend):

@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.host import emit, emit_paired
 from walt_tpu_torch.host.fastq import FgetsLines, load_batch
@@ -205,10 +206,13 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
     table_names = [("_CT00", "_CT01"), ("_GA10", "_GA11")]
     if pbat:
         table_names.reverse()
-    tables = [
-        [io_walt.read_table_cached(index_file + s, genome_meta) for s in pair]
-        for pair in table_names
-    ]
+    tables = []
+    for pair in table_names:
+        tables.append([])
+        for s in pair:
+            with perf.stage("setup.read_table"):
+                tables[-1].append(io_walt.read_table_cached(index_file + s,
+                                                            genome_meta))
     strands = "+-"
     if hasattr(backend, "table_budget_hint"):
         backend.table_budget_hint = 4  # HBM budget split across all 4 tables
@@ -260,7 +264,7 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
         if sam:
             fout.write(emit.sam_head(genome_meta))
 
-    from walt_tpu_torch import native, perf
+    from walt_tpu_torch import native
 
     use_native = (
         native.get_lib() is not None and hasattr(backend, "map_mate_slabs")

@@ -13,6 +13,7 @@ import itertools
 import sys
 import time
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import get_pattern
 from walt_tpu_torch.core import refmap
 from walt_tpu_torch.host import emit
@@ -40,7 +41,11 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
 
     genome_meta, _ = io_walt.read_head(index_file)
     suffixes = ("_CT00", "_CT01") if not ag_wildcard else ("_GA10", "_GA11")
-    tables = [io_walt.read_table_cached(index_file + s, genome_meta) for s in suffixes]
+    tables = []
+    for s in suffixes:
+        with perf.stage("setup.read_table"):
+            tables.append(io_walt.read_table_cached(index_file + s,
+                                                    genome_meta))
     strands = "+-"
     if hasattr(backend, "table_budget_hint"):
         backend.table_budget_hint = 2  # HBM budget split across both strands
@@ -133,7 +138,7 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
                     fb_any = lens >= pattern.min_read_len
             return codes, lens, v_pos, v_times, v_minus, v_mm, fb_any
 
-        from walt_tpu_torch import native, perf
+        from walt_tpu_torch import native
 
         def emit_batch(batch, mapped, i):
             codes, lens, v_pos, v_times, v_minus, v_mm, fb_any = mapped

@@ -264,7 +264,8 @@ class TorchBackend:
         others take ``tp_accel``.  No memory budget: tp is how a table is
         made to fit (walt_tpu's mesh path has none either)."""
         need_full = n_key_words >= 3
-        dt = device_index.build_device_table(genome, table, pattern)
+        with perf.stage("setup.table_prep"):
+            dt = device_index.build_device_table(genome, table, pattern)
         accel = "uniq" if need_full else self.tp_accel
         grid, dt.uniq_bits = sharded.shard_and_place(
             dt, self.mesh, pattern, accel=accel,
@@ -339,100 +340,107 @@ class TorchBackend:
                 f"{max(free, 0) / 2**30:.2f} GB of the "
                 f"{budget / 2**30:.0f} GB device budget is free"
             )
-        dt = device_index.build_device_table(genome, table, pattern)
-        base = (dt.pseq.nbytes + dt.counter.nbytes + dt.index.nbytes
-                + dt.start_index.nbytes + dt.bucket_flagged.nbytes)
-        try:
-            dev = device_index.place_table(dt, self.device)
-        except torch.cuda.OutOfMemoryError as e:
-            raise HbmBudgetError(f"table upload: {e}") from e
-        n = int(dt.index.shape[0])
-        uniq_max = None if free is None else free - base - dt.counter.nbytes
-        rung = os.environ.get("WALTX_KEY_RUNG", "")
-        # skip the uniq build outright when even an optimistic run count
-        # (U = 0.875n) cannot fit
-        skip_uniq = ((uniq_max is not None and 7 * n > uniq_max)
-                     or rung in ("word0", "key16"))
-        uniq = None
-        if not skip_uniq:
+        with perf.stage("setup.table_prep"):
+            dt = device_index.build_device_table(genome, table, pattern)
+        with perf.stage("setup.place"):
+            base = (dt.pseq.nbytes + dt.counter.nbytes + dt.index.nbytes
+                    + dt.start_index.nbytes + dt.bucket_flagged.nbytes)
             try:
-                uniq = device_index.build_uniq_device(
-                    dev["pseq"], dev["index"], dev["counter"], pattern,
-                    max_bytes=uniq_max,
-                )
-            except torch.cuda.OutOfMemoryError:
-                torch.cuda.empty_cache()
-        uniq_bytes = 0
-        label = "uniq"
-        if uniq is not None:
-            (dev["uniq_words"], dev["uniq_off"], dev["uniq_counter"],
-             dt.uniq_bits) = uniq
-            uniq_bytes = sum(_nbytes(a) for a in uniq[:3])
-        else:
-            dt.uniq_bits = 0
-            z = torch.zeros
-            dev["uniq_words"] = z(1, dtype=torch.int32, device=self.device)
-            dev["uniq_off"] = z(2, dtype=torch.int32, device=self.device)
-            dev["uniq_counter"] = z(2, dtype=torch.int32, device=self.device)
-        need_kw = max(n_key_words, 0 if dt.uniq_bits else 1)
-        if need_kw >= 3 or (need_kw and not dt.uniq_bits):
-            # One stored key word for a uniq-less fast-path table: the full
-            # u32 word 0 (4 bytes/entry, refines to the exact word-0 run) or
-            # its 16-bit prefix (2 bytes/entry, coarser run groups, more
-            # host fallback).  The JAX package measured key16 + concurrent
-            # native host replay faster end to end on its TPU, so key16
-            # comes first when the native library is present and the caller
-            # does not ask for the wide word; this order is not yet
-            # measured on an NVIDIA card.
-            from walt_tpu_torch import native as _native
-
-            k16_first = _native.get_lib() is not None and not wide_kw
-            kw_modes = ([(need_kw, 4 * need_kw * n, "3-word")]
-                        if need_kw >= 3 else
-                        [(0, 2 * n, "key16"), (1, 4 * n, "u32 word0")]
-                        if k16_first else
-                        [(1, 4 * n, "u32 word0"), (0, 2 * n, "key16")])
-            if need_kw < 3 and rung == "word0":
-                kw_modes = [m for m in kw_modes if m[0] == 1]
-            elif need_kw < 3 and rung == "key16":
-                kw_modes = [m for m in kw_modes if m[0] == 0]
-            chosen = next((m for m in kw_modes
-                           if free is None or base + uniq_bytes + m[1] <= free),
-                          None)
-            if chosen is None:
-                raise HbmBudgetError(
-                    f"key words need {kw_modes[-1][1] / 2**30:.2f} GB on top "
-                    f"of {(base + uniq_bytes) / 2**30:.2f} GB of tables; "
-                    f"budget is {budget / 2**30:.0f} GB"
-                )
-            mode, _, label = chosen
-
-            def build_kw(m):
-                if m >= 1:
-                    return device_index.build_key_words_device(
-                        dev["pseq"], dev["index"], pattern, n_key_words=m)
-                return device_index.build_key16_device(
-                    dev["pseq"], dev["index"], pattern)
-
-            try:
-                dev["key_words"] = build_kw(mode)
+                dev = device_index.place_table(dt, self.device)
             except torch.cuda.OutOfMemoryError as e:
-                # the budget passed but the real allocator did not: degrade
-                # to key16 once, after releasing the failed attempt's blocks
-                torch.cuda.empty_cache()
-                if mode < 1:
-                    raise HbmBudgetError(f"key16 build: {e}") from e
+                raise HbmBudgetError(f"table upload: {e}") from e
+            n = int(dt.index.shape[0])
+            uniq_max = (None if free is None
+                        else free - base - dt.counter.nbytes)
+            rung = os.environ.get("WALTX_KEY_RUNG", "")
+            # skip the uniq build outright when even an optimistic run count
+            # (U = 0.875n) cannot fit
+            skip_uniq = ((uniq_max is not None and 7 * n > uniq_max)
+                         or rung in ("word0", "key16"))
+            uniq = None
+            if not skip_uniq:
                 try:
-                    dev["key_words"] = build_kw(0)
-                    label = "key16"
-                except torch.cuda.OutOfMemoryError as e2:
+                    uniq = device_index.build_uniq_device(
+                        dev["pseq"], dev["index"], dev["counter"], pattern,
+                        max_bytes=uniq_max,
+                    )
+                except torch.cuda.OutOfMemoryError:
+                    torch.cuda.empty_cache()
+            uniq_bytes = 0
+            label = "uniq"
+            if uniq is not None:
+                (dev["uniq_words"], dev["uniq_off"], dev["uniq_counter"],
+                 dt.uniq_bits) = uniq
+                uniq_bytes = sum(_nbytes(a) for a in uniq[:3])
+            else:
+                dt.uniq_bits = 0
+                z = torch.zeros
+                dev["uniq_words"] = z(1, dtype=torch.int32, device=self.device)
+                dev["uniq_off"] = z(2, dtype=torch.int32, device=self.device)
+                dev["uniq_counter"] = z(2, dtype=torch.int32,
+                                        device=self.device)
+            need_kw = max(n_key_words, 0 if dt.uniq_bits else 1)
+            if need_kw >= 3 or (need_kw and not dt.uniq_bits):
+                # One stored key word for a uniq-less fast-path table: the
+                # full u32 word 0 (4 bytes/entry, refines to the exact word-0
+                # run) or its 16-bit prefix (2 bytes/entry, coarser run
+                # groups, more host fallback).  The JAX package measured
+                # key16 + concurrent native host replay faster end to end on
+                # its TPU, so key16 comes first when the native library is
+                # present and the caller does not ask for the wide word; this
+                # order is not yet measured on an NVIDIA card.
+                from walt_tpu_torch import native as _native
+
+                k16_first = _native.get_lib() is not None and not wide_kw
+                kw_modes = ([(need_kw, 4 * need_kw * n, "3-word")]
+                            if need_kw >= 3 else
+                            [(0, 2 * n, "key16"), (1, 4 * n, "u32 word0")]
+                            if k16_first else
+                            [(1, 4 * n, "u32 word0"), (0, 2 * n, "key16")])
+                if need_kw < 3 and rung == "word0":
+                    kw_modes = [m for m in kw_modes if m[0] == 1]
+                elif need_kw < 3 and rung == "key16":
+                    kw_modes = [m for m in kw_modes if m[0] == 0]
+                chosen = next(
+                    (m for m in kw_modes
+                     if free is None or base + uniq_bytes + m[1] <= free),
+                    None)
+                if chosen is None:
                     raise HbmBudgetError(
-                        "key-word build exhausted device memory on every "
-                        "rung; mapping on the exact host path") from e2
-        else:
-            dev["key_words"] = torch.zeros((1, 1), dtype=torch.int32,
-                                           device=self.device)
-        self.rungs[name] = label
+                        f"key words need {kw_modes[-1][1] / 2**30:.2f} GB on "
+                        f"top of {(base + uniq_bytes) / 2**30:.2f} GB of "
+                        f"tables; "
+                        f"budget is {budget / 2**30:.0f} GB"
+                    )
+                mode, _, label = chosen
+
+                def build_kw(m):
+                    if m >= 1:
+                        return device_index.build_key_words_device(
+                            dev["pseq"], dev["index"], pattern, n_key_words=m)
+                    return device_index.build_key16_device(
+                        dev["pseq"], dev["index"], pattern)
+
+                try:
+                    dev["key_words"] = build_kw(mode)
+                except torch.cuda.OutOfMemoryError as e:
+                    # the budget passed but the real allocator did not:
+                    # degrade to key16 once, after releasing the failed
+                    # attempt's blocks
+                    torch.cuda.empty_cache()
+                    if mode < 1:
+                        raise HbmBudgetError(f"key16 build: {e}") from e
+                    try:
+                        dev["key_words"] = build_kw(0)
+                        label = "key16"
+                    except torch.cuda.OutOfMemoryError as e2:
+                        raise HbmBudgetError(
+                            "key-word build exhausted device memory on every "
+                            "rung; mapping on the exact host path") from e2
+            else:
+                dev["key_words"] = torch.zeros((1, 1), dtype=torch.int32,
+                                               device=self.device)
+            self.rungs[name] = label
         return dt, dev
 
     # ---- batching --------------------------------------------------------
@@ -742,6 +750,13 @@ class TorchBackend:
         (n, cand_slab), C-contiguous, as ``native.pe_finalize`` takes them.
         A read with more than cand_slab merged entries on a strand falls
         back.
+
+        With T > 1 the decode counts, per shard t, the flat entries decoded
+        from its stream (``mesh.flat_rows.<t>``) and the mates whose
+        fallback bit it set (``mesh.fallback_reads.<t>``), and the mates
+        that fall back only because their shards' merged entries overflow
+        the slab (``mesh.merged_overflow_reads``); the merge is the span
+        ``backend.decode.merge``.  One shard counts none.
         """
         C = self.cand_slab
         streams = [dict(seed=np.zeros((n, C), dtype=np.int8),
@@ -752,6 +767,7 @@ class TorchBackend:
         fallback = np.zeros(n, dtype=bool)
         cnt_acc = np.zeros((2, n), dtype=np.int64)
         pend = []  # entries of several shards, awaiting the seed-order merge
+        shard_rows, shard_fb = {}, {}  # per shard t, when T > 1
         for i, (a, z) in enumerate(spans):
             metas, flats = host[2 * i], host[2 * i + 1].view(np.uint32)
             if metas.ndim == 1:
@@ -769,11 +785,15 @@ class TorchBackend:
                     flat = flats[t, g * seg_m:(g + 1) * seg_m]
                     cnt0 = meta & 0xFF
                     cnt1 = (meta >> 8) & 0xFF
-                    fallback[a0:z0] |= ((meta >> 16) & 1).astype(bool)
+                    fb = ((meta >> 16) & 1).astype(bool)
+                    fallback[a0:z0] |= fb
                     cnt_acc[0, a0:z0] += cnt0
                     cnt_acc[1, a0:z0] += cnt1
                     total = cnt0 + cnt1
                     m = int(total.sum())  # <= M_l: spilled reads count none
+                    if T > 1:
+                        shard_rows[t] = shard_rows.get(t, 0) + m
+                        shard_fb[t] = shard_fb.get(t, 0) + int(fb.sum())
                     if not m:
                         continue
                     rid = np.repeat(np.arange(z0 - a0), total)
@@ -788,23 +808,32 @@ class TorchBackend:
                     else:
                         pend.append(entry + (np.full(m, t),))
         if pend:
-            rid, strand, seed, pos, mm, col, shard = (
-                np.concatenate([p[k] for p in pend]) for k in range(7))
-            # examination order: seed asc (one shard per (read, seed)), then
-            # the shard's stream order
-            order = np.lexsort((col, shard, seed, strand, rid))
-            rid, strand, seed, pos, mm = (
-                x[order] for x in (rid, strand, seed, pos, mm))
-            start = np.ones(rid.shape[0], dtype=bool)
-            start[1:] = (rid[1:] != rid[:-1]) | (strand[1:] != strand[:-1])
-            col = np.arange(rid.shape[0]) - np.maximum.accumulate(
-                np.where(start, np.arange(rid.shape[0]), 0))
-            ok = col < C  # reads past the slab fall back through cnt_acc
-            self._put(streams, rid[ok], strand[ok], seed[ok], pos[ok],
-                      mm[ok], col[ok])
+            with perf.stage("backend.decode.merge"):
+                rid, strand, seed, pos, mm, col, shard = (
+                    np.concatenate([p[k] for p in pend]) for k in range(7))
+                # examination order: seed asc (one shard per (read, seed)),
+                # then the shard's stream order
+                order = np.lexsort((col, shard, seed, strand, rid))
+                rid, strand, seed, pos, mm = (
+                    x[order] for x in (rid, strand, seed, pos, mm))
+                start = np.ones(rid.shape[0], dtype=bool)
+                start[1:] = ((rid[1:] != rid[:-1])
+                             | (strand[1:] != strand[:-1]))
+                col = np.arange(rid.shape[0]) - np.maximum.accumulate(
+                    np.where(start, np.arange(rid.shape[0]), 0))
+                ok = col < C  # reads past the slab fall back through cnt_acc
+                self._put(streams, rid[ok], strand[ok], seed[ok], pos[ok],
+                          mm[ok], col[ok])
         for s, st in enumerate(streams):
             st["cnt"][:] = np.minimum(cnt_acc[s], C)
-        fallback |= (cnt_acc > C).any(0)
+        over = (cnt_acc > C).any(0)
+        for t, rows in shard_rows.items():
+            perf.count(f"mesh.flat_rows.{t}", rows)
+            perf.count(f"mesh.fallback_reads.{t}", shard_fb[t])
+        if shard_rows:
+            perf.count("mesh.merged_overflow_reads",
+                       int((over & ~fallback).sum()))
+        fallback |= over
         return streams, fallback
 
     @staticmethod

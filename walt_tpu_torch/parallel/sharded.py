@@ -49,6 +49,7 @@ import threading
 import numpy as np
 import torch
 
+from walt_tpu_torch import perf
 from walt_tpu_torch.constants import SeedPattern, get_pattern
 from walt_tpu_torch.ops import device_index, packing, pe_map, pipeline, se_fold
 from walt_tpu_torch.ops.device_index import DeviceTable
@@ -265,7 +266,8 @@ def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
     Returns (grid, uniq_bits): ``grid[d][t]`` is the dict of shard t's
     tensors on ``mesh.devices[d][t]`` (``key_base`` an int), the same
     object for every dp row on one device; ``uniq_bits`` is the probe count
-    of the largest shard (walt_tpu's global count).
+    of the largest shard (walt_tpu's global count).  Each shard's
+    placement and builds on each device is one ``setup.place`` span.
     """
     if accel not in ("uniq", "key16"):
         raise ValueError(f"unknown accel {accel!r}")
@@ -279,34 +281,35 @@ def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
     for t in range(tp):
         a, b = int(bounds[t]), int(bounds[t + 1])
         for device in dict.fromkeys(row[t] for row in mesh.devices):
-            if device not in genome:
-                genome[device] = (packing.from_np(dt.pseq, device),
-                                  packing.from_np(dt.start_index, device))
-            pseq, start_index = genome[device]
-            counter = packing.from_np(
-                dt.counter[t * nbl:(t + 1) * nbl + 1] - dt.counter[t * nbl],
-                device)
-            index = packing.from_np(dt.index[a:b], device)
-            sh = dict(
-                key_base=t * nbl, pseq=pseq, start_index=start_index,
-                counter=counter, bucket_flagged=torch.from_numpy(
-                    dt.bucket_flagged[t * nbl:(t + 1) * nbl]).to(device),
-            )
-            if accel == "key16":
-                sh["key_words"] = _at_least_one(
-                    device_index.build_key16_device(pseq, index, pattern))
-            else:
-                uw, uo, uc, bits = device_index.build_uniq_device(
-                    pseq, index, counter, pattern)
-                uniq_bits = max(uniq_bits, bits)
-                sh.update(uniq_words=_at_least_one(uw), uniq_off=uo,
-                          uniq_counter=uc)
-                sh["key_words"] = (
-                    device_index.build_key_words_device(
-                        pseq, index, pattern, n_key_words=n_key_words)
-                    if n_key_words else
-                    torch.zeros((1, 1), dtype=torch.int32, device=device))
-            sh["index"] = _at_least_one(index)
+            with perf.stage("setup.place"):
+                if device not in genome:
+                    genome[device] = (packing.from_np(dt.pseq, device),
+                                      packing.from_np(dt.start_index, device))
+                pseq, start_index = genome[device]
+                counter = packing.from_np(
+                    dt.counter[t * nbl:(t + 1) * nbl + 1]
+                    - dt.counter[t * nbl], device)
+                index = packing.from_np(dt.index[a:b], device)
+                sh = dict(
+                    key_base=t * nbl, pseq=pseq, start_index=start_index,
+                    counter=counter, bucket_flagged=torch.from_numpy(
+                        dt.bucket_flagged[t * nbl:(t + 1) * nbl]).to(device),
+                )
+                if accel == "key16":
+                    sh["key_words"] = _at_least_one(
+                        device_index.build_key16_device(pseq, index, pattern))
+                else:
+                    uw, uo, uc, bits = device_index.build_uniq_device(
+                        pseq, index, counter, pattern)
+                    uniq_bits = max(uniq_bits, bits)
+                    sh.update(uniq_words=_at_least_one(uw), uniq_off=uo,
+                              uniq_counter=uc)
+                    sh["key_words"] = (
+                        device_index.build_key_words_device(
+                            pseq, index, pattern, n_key_words=n_key_words)
+                        if n_key_words else
+                        torch.zeros((1, 1), dtype=torch.int32, device=device))
+                sh["index"] = _at_least_one(index)
             placed[t, device] = sh
     grid = [[placed[t, row[t]] for t in range(tp)] for row in mesh.devices]
     return grid, uniq_bits

@@ -122,9 +122,9 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     on card 0 at HG19_BP bases, HG19_READS reads of 100 bp and of 150 bp
     and as many pairs of 2x100 and 2x150 bp, its plans under
     HG19_ENTRY_LIMIT (a
-    shard's entry limit scaled to this genome, which refuses tp=1 and 2
-    as 2^31 does hg19's) and a memory budget under which both the SE plan
-    (two tables) and the PE plan (four) split them tp=4 with key16 (a
+    shard's entry limit scaled to this genome, which refuses tp=1 and 2)
+    and a memory budget under which the SE plan (two tables) splits them
+    tp=4 with the uniq index and the PE plan (four) tp=4 with key16 (a
     virtual mesh on the one card), GA10 and GA11 through a spill
     directory, work and report in a temporary directory.  Every parity of
     the tool must hold (mesh at both lengths and the CLI against the exact
@@ -219,11 +219,12 @@ PE_M = 393_216
 N_MESH_READS = 250_000
 N_MESH_PAIRS = 125_000
 #: pair share the tp=2 mesh must resolve on the device.  Lower than
-#: MIN_DEVICE_SHARE: a converted read has three bases, so one of two
-#: bucket-range shards owns about 2/3 of its (read, seed) pairs, while the
-#: routed row capacity (walt_tpu's int(1.25 * pairs / T) + 128, kept so the
-#: port equals walt_tpu exactly) holds 5/8; the reads past it fall back, and
-#: the PE step has no device tiers to take them (0.6849 measured on an H100)
+#: MIN_DEVICE_SHARE: the PE step has no device tiers for the reads a
+#: shard's routed rows (int(1.25 * pairs / T) + 128) or worklist spill.
+#: Under walt_tpu's equal bucket-key ranges one of two shards owned about
+#: 2/3 of a converted read's (read, seed) pairs, past the rows' 5/8 (0.6849
+#: measured on an H100); the port's entry-balanced ranges give each about
+#: half
 MIN_MESH_PE_SHARE = 0.65
 #: the uniq build's peak device memory above its table and outputs
 MAX_UNIQ_BUILD_GIB = 0.5
@@ -1975,22 +1976,25 @@ def dp_phase(index: str, device) -> dict:
 #: phase 18: the hg19 tool's genome bases, and reads and pairs per read
 #: length
 HG19_BP, HG19_READS = 32_000_000, 50_000
-#: phase 18's entry limit for the plans: 0.6 of a table, so that, as for
-#: hg19 on an 80 GB card, the limit refuses tp=1 and tp=2 (the heavier
-#: half of a table holds ~0.7 of it) and memory picks the rung at tp=4
-HG19_ENTRY_LIMIT = 19_200_000
+#: phase 18's entry limit for the plans: 0.4 of a table, so that the limit
+#: refuses tp=1 and tp=2 (the runtime's split puts about half of a table on
+#: each tp=2 shard) and memory picks the rung at tp=4
+HG19_ENTRY_LIMIT = 12_800_000
 
 
 def hg19_phase() -> tuple:
     """Phase 18: ``tools/hg19_scale_torch.py`` on card 0 at HG19_BP bases,
-    its plans under HG19_ENTRY_LIMIT and a memory budget under which both
-    the SE plan (two tables) and the PE plan (four) split them tp=4 with
-    the key16 rung (a virtual mesh on the one card), both read and pair
+    its plans under HG19_ENTRY_LIMIT and a memory budget under which the
+    SE plan (two tables) splits them tp=4 with the uniq rung and the PE
+    plan (four) tp=4 with key16 (a virtual mesh on the one card), both
+    read and pair
     lengths, GA10 and GA11 through a spill directory, and the work and
     report in a temporary directory.  Returns (SE launches, PE launches,
     the largest working set in GiB)."""
     import importlib.util
     import tempfile
+
+    import numpy as np
 
     from walt_tpu_torch import hbm_plan
     from walt_tpu_torch.core.torch_backend import TorchBackend
@@ -1999,12 +2003,18 @@ def hg19_phase() -> tuple:
         "hg19_scale_torch", os.path.join(ROOT, "tools", "hg19_scale_torch.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    # between the model's tp=4 key16 card of the four PE tables and the
-    # cheaper tp=4 uniq card (SE's): with tp=1 and tp=2 out of the limit's
-    # reach, both plans take tp=4 key16 (walt_tpu's hg19 rung)
-    lo = hbm_plan.card_bytes(HG19_BP, 4, 4, False, 0.93)
-    hi = min(hbm_plan.card_bytes(HG19_BP, 2, 4, True, 0.93),
-             hbm_plan.card_bytes(HG19_BP, 4, 4, True, 0.93))
+    # the plans read the tables' own split, which holds about a quarter of
+    # each table's entries on a tp=4 card: sized on a table whose entries
+    # spread evenly over its buckets, the budget lies between the SE uniq
+    # and PE key16 cards and the PE uniq card (275, 308 and 549 MB; the
+    # tool's genome: 313, 318 and 568), so with tp=1 and tp=2 out of the
+    # limit's reach SE takes tp=4 uniq and PE tp=4 key16 (walt_tpu's hg19
+    # rung)
+    even = [np.linspace(0, HG19_BP, hbm_plan.NB1).astype(np.uint32)]
+    lo = max(hbm_plan.card_bytes(HG19_BP, 2, 4, True, 0.93, counters=even * 2),
+             hbm_plan.card_bytes(HG19_BP, 4, 4, False, 0.93,
+                                 counters=even * 4))
+    hi = hbm_plan.card_bytes(HG19_BP, 4, 4, True, 0.93, counters=even * 4)
     hbm_gib = (TorchBackend.HBM_RESERVE + (lo + hi) / 2) / 2**30
     with tempfile.TemporaryDirectory(prefix="hg19_phase_") as tmp:
         report = os.path.join(tmp, "report.json")
@@ -2025,7 +2035,8 @@ def hg19_phase() -> tuple:
         raise AssertionError(f"hg19: rc {rc}, parities {rep['parities']}, "
                              f"failures {rep.get('failures')}")
     layout = [(m["tp"], m["virtual"], m["accel"]) for m in (mm, pe)]
-    if layout != [(4, True, "key16")] * 2 or rep["spill"]["tables"] != [
+    if layout != [(4, True, "uniq"), (4, True, "key16")] or rep["spill"][
+            "tables"] != [
             "GA10", "GA11"]:
         raise AssertionError(f"hg19: SE and PE (tp, virtual, accel) "
                              f"{layout}, spilled {rep['spill']['tables']}")
@@ -2046,8 +2057,9 @@ def hg19_phase() -> tuple:
     per, per_pe = mm["per_device"], pe["per_device"]
     say("hg19", f"phase 18, tools/hg19_scale_torch.py at {HG19_BP} bp, "
                 f"{HG19_READS} reads and pairs per length, in {wall:.1f} s: "
-                f"plans {rep['plan']}; {rep['plan_pe']}; tp=4 {mm['accel']} "
-                f"virtual meshes, tables placed in {mm['setup_s']} s (SE) "
+                f"plans {rep['plan']}; {rep['plan_pe']}; tp=4 {mm['accel']} / "
+                f"{pe['accel']} virtual meshes, tables placed in "
+                f"{mm['setup_s']} s (SE) "
                 f"and {pe['setup_s']} s (PE); " + "; ".join(
                     f"{k} bp {v['reads_per_s']} reads/s, fallback "
                     f"{v['fallback_pct']}%, {v['verify_launches']} launches"

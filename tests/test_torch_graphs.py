@@ -366,7 +366,7 @@ def test_map_strand_equals_numpy_backend(mates, pe_tables):
 def test_sharded_rows_replay_cached_parts(synth, dp, tp, mode):
     """The dp rows' parts replay from one cache, one lane per row, and the
     sharded steps equal walt_tpu's sharded programs on two chunks of one
-    shape."""
+    shape (the tables at walt_tpu's equal bucket-key ranges)."""
     if len(jax.devices()) < dp * tp:
         pytest.skip(f"needs {dp * tp} (virtual) JAX devices")
     jmesh = jsh.make_mesh(jax.devices()[:dp * tp], tp=tp)
@@ -375,7 +375,8 @@ def test_sharded_rows_replay_cached_parts(synth, dp, tp, mode):
     preads, lens = ga if mode == "pe" else ct
     convs = {"strand": ["CT00"], "se": ["CT00", "CT01"],
              "pe": ["GA10", "GA11"]}[mode]
-    jt, tt, bits, ubits = _placed(dts, convs, jmesh, tmesh, "uniq")
+    jt, tt, bits, ubits = _placed(dts, convs, jmesh, tmesh, "uniq",
+                                  equal=True)
     kw = dict(pattern_name="3", ag_wildcard=mode == "pe", cand_slab=C)
     if mode == "pe":
         kw.update(search_bits=bits, uniq_bits=ubits,

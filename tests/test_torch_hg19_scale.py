@@ -23,8 +23,11 @@ def test_hg19_tool_rehearses_on_cpu(tmp_path):
                WALTX_HG19_DIR=str(tmp_path / "work"),
                WALTX_HG19_REPORT=str(report))
     # 0.16 GiB above the backend's reserve holds neither rung of the toy
-    # tables on one card, and half of them with the uniq index: the plan
-    # splits them tp=2, uniq (memory decides here; the entry limit decides
+    # tables on one card (uniq 325 MB, key16 180 MB), nor the heavier tp=2
+    # card with the uniq index (239 MB: the runtime's entry-balanced split
+    # gives it 3/4 of each table's 4^12 buckets, whose arrays outweigh the
+    # entries at this size), but that card with key16 (132 MB): the plan
+    # splits them tp=2, key16 (memory decides here; the entry limit decides
     # hg19's tp=4 on an H100)
     hbm_gib = TorchBackend.HBM_RESERVE / 2**30 + 0.16
     out = subprocess.run(
@@ -36,11 +39,12 @@ def test_hg19_tool_rehearses_on_cpu(tmp_path):
     assert rep["parity"] == {"mr_bytes_equal": True,
                              "mapstats_bytes_equal": True}
     assert rep["mesh_map"]["tp"] == 2 and rep["mesh_map"]["virtual"]
-    assert rep["mesh_map"]["accel"] == "uniq"
-    assert rep["plan"].startswith("0.00 Gbp x 2 tables: tp=2, uniq")
-    # the heavier of the two bucket-range shards of a uniform genome's
-    # C->T tables holds ~3/4 of their entries (G and T)
-    assert 0.7 < rep["heaviest_shard_entries"] / 1_000_000 < 0.8
+    assert rep["mesh_map"]["accel"] == "key16"
+    assert rep["plan"].startswith("0.00 Gbp x 2 tables: tp=2, key16")
+    # the heavier of the two entry-balanced shards of a uniform genome's
+    # C->T tables holds about half of their entries (walt_tpu's equal key
+    # ranges would give it ~3/4: G and T)
+    assert 0.49 < rep["heaviest_shard_entries"] / 1_000_000 < 0.51
     assert all(t["sha_ok"] for t in rep["round_trip"].values())
     assert len(rep["tables"]) == 4 and "card" not in rep
     assert not report.exists()
@@ -62,10 +66,12 @@ def _tool(tmp, hbm_gib, *extra, **env):
         env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
 
 
-#: a toy shard's entry limit: 0.6 of a table, so that, as for hg19 on an
-#: H100 (where a tp=2 shard of a human table holds ~0.71 of its entries,
-#: past 2^31), the limit refuses tp=1 and tp=2 and leaves tp=4 (~0.5)
-TOY_ENTRY_LIMIT = 600_000
+#: a toy shard's entry limit: 0.4 of a table, so that the limit refuses
+#: tp=1 and tp=2 of the runtime's entry-balanced split (about half a table
+#: per shard at tp=2) and leaves tp=4 (about a quarter), as the size-only
+#: plan's model of walt_tpu's equal key ranges does for hg19 on an H100
+#: (whose heavier tp=2 shard would hold ~0.71 of 3.1e9 entries, past 2^31)
+TOY_ENTRY_LIMIT = 400_000
 
 
 @pytest.fixture(scope="module")

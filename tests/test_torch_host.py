@@ -336,6 +336,36 @@ def test_fill_copies_each_stream_byte_at_most_twice(size):
     assert len(text) <= c["parse.buffer_bytes"] <= 2 * len(text)
 
 
+@pytest.mark.parametrize("path", [False, True], ids=["stream", "file"])
+def test_fill_asks_for_bounded_pieces(tmp_path, monkeypatch, path):
+    """A batch of more reads than the input holds (1 << 40: to the end)
+    reads it to its end in pieces of at most ``_MAX_READ`` bytes: a file's
+    read(n) allocates n bytes first, and the whole batch's estimate would
+    not fit in memory."""
+    text = _fastq_text(300, seed=5)
+    # an in-memory stream's read(n) returns what it holds
+    want = tfastq.load_batch(tfastq.FgetsLines(io.BytesIO(text)), 1 << 40)
+    asked = []
+
+    class Asked(io.BytesIO):
+        def read(self, n=-1):
+            asked.append(n)
+            return super().read(n)
+
+    monkeypatch.setattr(tfastq, "_MAX_READ", 1 << 13)
+    if path:
+        (tmp_path / "r.fq").write_bytes(text)
+        lines = tfastq.FgetsLines(str(tmp_path / "r.fq"))
+    else:
+        lines = tfastq.FgetsLines(Asked(text))
+    got = tfastq.load_batch(lines, 1 << 40)
+    lines.close()
+    assert len(got) == 300
+    assert got.seqs == want.seqs and got.names == want.names
+    if not path:
+        assert max(asked) <= 1 << 13 and len(asked) > len(text) >> 13
+
+
 def _read_all(paths):
     out = []
     for p in paths:

@@ -11,9 +11,10 @@ comparisons with walt_tpu's JAX programs, which compile for each pattern:
   neither side fell back, with the same fallback masks;
 - the pattern is part of a cached step's key (``ops/graphs``);
 - (e) a tp = 2 sharded SE step under pattern 7 == walt_tpu's on its
-  8-device virtual mesh.
+  8-device virtual mesh where neither side fell back (the port splits a
+  table by entry count, walt_tpu by equal key ranges: F4).
 
-Exact equality throughout.
+Exact equality throughout, on the reads each comparison holds.
 """
 
 import numpy as np
@@ -195,5 +196,10 @@ def test_sharded_se_pattern7_matches_walt_tpu(datasets):
     got = tsh.map_single_end_sharded(
         packing.from_np(preads), torch.from_numpy(lens), 5000, 6, tt,
         mesh=tmesh, **kw)
-    np.testing.assert_array_equal(np.asarray(got),
-                                  np.asarray(want).astype(np.int64))
+    got, want = np.asarray(got), np.asarray(want).astype(np.int64)
+    ok = ((got[:, 2] | want[:, 2]) & 1) == 0  # the fallback bit
+    np.testing.assert_array_equal(got[ok], want[ok])
+    # the compared reads are all but walt_tpu's host reads and the port's,
+    # which are no more (its split spills fewer routed pairs)
+    fell = int((got[:, 2] & 1).sum()), int((want[:, 2] & 1).sum())
+    assert fell[0] <= fell[1], fell

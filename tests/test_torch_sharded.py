@@ -1,22 +1,29 @@
 """walt_tpu_torch's multi-device mapping against walt_tpu's sharded programs.
 
 walt_tpu runs on the 8-device virtual JAX CPU mesh of tests/conftest.py
-(dp=4 x tp=2), the port on ``make_mesh(["cpu"] * 8, tp=2)``.  Exact
-equality throughout, fallback bits included:
+(dp=4 x tp=2), the port on ``make_mesh(["cpu"] * 8, tp=2)``.  walt_tpu
+splits a table into equal bucket-key ranges, the port into ranges of
+about equal entry counts (reference fault F4), which moves reads' route
+and worklist spills; where a test says so, results are compared where
+neither side fell back (ROADMAP's parity rule), elsewhere exactly,
+fallback bits included:
 
-- ``shard_device_table`` (uniq and key16, tp 2 and 4) == walt_tpu's padded
-  host layout; the port keeps the flags as uint8 bit masks where walt_tpu
-  casts them to bool (reference fault F3);
+- ``balanced_bounds``: strictly increasing cuts, every shard non-empty and
+  within one bucket of N/T entries;
+- ``shard_device_table`` (uniq and key16, tp 2 and 4) at walt_tpu's equal
+  ranges == walt_tpu's padded host layout; the port keeps the flags as
+  uint8 bit masks where walt_tpu casts them to bool (reference fault F3);
 - ``shard_and_place``'s exact-size shards == the padded host rows, placed
-  once per (shard, device);
+  once per (shard, device), under both splits;
 - ``map_strand_core`` with ``key_base``, unrouted and routed (with and
   without route spills), on the uniq, key16, u32 word-0 and 3-word exact_b
   rungs, as slabs and as the ``emit_wl`` stream;
 - ``merge_gathered`` and ``combine_summaries`` on random inputs;
-- ``map_strand_sharded``, ``map_single_end_sharded`` and
-  ``map_mate_sharded`` (on chunks whose flat streams do not spill: F1 is
-  steered around); the mate step on both mates' tables and at tp=4 too,
-  on dp=2 x tp=4 meshes of the same 8 devices.
+- ``map_strand_sharded`` and ``map_single_end_sharded`` on the port's
+  split, where neither side fell back; ``map_mate_sharded`` at walt_tpu's
+  equal ranges, exactly (on chunks whose flat streams do not spill: F1 is
+  steered around), on both mates' tables and at tp=4 too, on dp=2 x tp=4
+  meshes of the same 8 devices.
 """
 
 import jax.numpy as jnp
@@ -102,7 +109,9 @@ def _i32(a):
 def test_shard_device_table_matches_jax(synth, accel, T):
     dt = synth[0]["CT00"]
     want = jsh.shard_device_table(dt, T, accel=accel)
-    got = tsh.shard_device_table(dt, T, accel=accel)
+    got = tsh.shard_device_table(
+        dt, T, accel=accel,
+        bucket_bounds=tsh.bucket_range_bounds(dt.counter, T)[0])
     for f in ("key_base", "counter", "index", "key_words", "uniq_counter",
               "uniq_words", "uniq_off", "pseq", "start_index"):
         a, b = getattr(got, f), getattr(want, f)
@@ -120,31 +129,39 @@ def test_shard_device_table_matches_jax(synth, accel, T):
                                   want.bucket_flagged)
 
 
+#: the tp=2 splits a placement is held to the host layout under: walt_tpu's
+#: equal bucket-key ranges and the runtime's entry-balanced ranges
+SPLITS = {"equal": tsh.bucket_range_bounds, "balanced": tsh.balanced_bounds}
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
 @pytest.mark.parametrize("accel", ["uniq", "key16"])
-def test_shard_and_place_is_the_host_layout(synth, tmesh, accel):
+def test_shard_and_place_is_the_host_layout(synth, tmesh, accel, split):
     dt = synth[0]["CT01"]
-    st = tsh.shard_device_table(dt, 2, accel=accel)
-    grid, ubits = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel)
+    kb = SPLITS[split](dt.counter, 2)[0]
+    st = tsh.shard_device_table(dt, 2, accel=accel, bucket_bounds=kb)
+    grid, ubits = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel,
+                                      bucket_bounds=kb)
     assert ubits == st.uniq_bits
     assert len(grid) == 4 and all(len(r) == 2 for r in grid)
     for t in range(2):
         sh = grid[0][t]
         assert all(row[t] is sh for row in grid)  # one copy per device
         assert sh["pseq"] is grid[0][0]["pseq"]
-        assert sh["key_base"] == int(st.key_base[t])
-        n = int(st.counter[t, -1])
+        assert sh["key_base"] == int(st.key_base[t]) == kb[t]
+        n, nbl = int(st.counter[t, -1]), int(kb[t + 1] - kb[t])
         np.testing.assert_array_equal(_np(sh["counter"]).view(np.uint32),
-                                      st.counter[t])
+                                      st.counter[t, :nbl + 1])
         np.testing.assert_array_equal(_np(sh["index"]).view(np.uint32),
                                       st.index[t, :n])
         np.testing.assert_array_equal(_np(sh["bucket_flagged"]),
-                                      st.bucket_flagged[t])
+                                      st.bucket_flagged[t, :nbl])
         if accel == "key16":
             np.testing.assert_array_equal(
                 _np(sh["key_words"]).view(np.uint16), st.key_words[t, :n])
             continue
         u = int(st.uniq_counter[t, -1])
-        for k, want in (("uniq_counter", st.uniq_counter[t]),
+        for k, want in (("uniq_counter", st.uniq_counter[t, :nbl + 1]),
                         ("uniq_words", st.uniq_words[t, :u]),
                         ("uniq_off", st.uniq_off[t, :u + 1])):
             np.testing.assert_array_equal(_np(sh[k]).view(np.uint32), want,
@@ -286,15 +303,19 @@ def test_combine_summaries_matches_jax():
                                       _np(want[k]).astype(np.int64), err_msg=k)
 
 
-def _placed(dts, convs, mesh8, tmesh, accel):
+def _placed(dts, convs, mesh8, tmesh, accel, equal=False):
     """walt_tpu's and the port's placed shards of each table, and their
-    search / uniq bits."""
+    search / uniq bits; ``equal``: the port's at walt_tpu's equal bucket-key
+    ranges, else at its own split."""
     jt, tt, bits, ubits = [], [], [], []
     for conv in convs:
         dt = dts[conv]
         dev, ub = jsh.shard_and_place(dt, mesh8, accel=accel,
                                       free_input=False)
-        grid, ub_t = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel)
+        kb = (tsh.bucket_range_bounds(dt.counter, tmesh.shape["tp"])[0]
+              if equal else None)
+        grid, ub_t = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel,
+                                         bucket_bounds=kb)
         assert ub_t == ub
         jt.append(dev)
         tt.append(grid)
@@ -318,9 +339,14 @@ def test_map_strand_sharded_matches_jax(synth, mesh8, tmesh, accel):
         uniq_off=jt["uniq_off"], **kw)
     got = tsh.map_strand_sharded(_i32(preads), torch.from_numpy(lens), 5000,
                                  6, tt, mesh=tmesh, **kw)
-    for j, t in zip(want, got):
-        np.testing.assert_array_equal(_np(t).astype(np.int64),
-                                      _np(j).astype(np.int64))
+    ok = ~(_np(got[4]) | _np(want[4]))
+    for j, t in zip(want[:4], got[:4]):
+        np.testing.assert_array_equal(_np(t).astype(np.int64)[ok],
+                                      _np(j).astype(np.int64)[ok])
+    # the compared reads are all but walt_tpu's host reads and the port's,
+    # which are no more (its split spills fewer routed pairs)
+    fell = int(_np(got[4]).sum()), int(_np(want[4]).sum())
+    assert fell[0] <= fell[1], fell
     assert _np(got[3]).sum() > 0
 
 
@@ -337,8 +363,13 @@ def test_map_single_end_sharded_matches_jax(synth, mesh8, tmesh):
         got = tsh.map_single_end_sharded(
             _i32(preads), torch.from_numpy(lens), 5000, 6, tt, mesh=tmesh,
             **kw)
-        np.testing.assert_array_equal(_np(got),
-                                      _np(want).astype(np.int64))
+        got, want = _np(got), _np(want).astype(np.int64)
+        ok = ((got[:, 2] | want[:, 2]) & 1) == 0  # the fallback bit
+        np.testing.assert_array_equal(got[ok], want[ok])
+        # the compared reads are all but walt_tpu's host reads and the port's,
+        # which are no more (its split spills fewer routed pairs)
+        fell = int((got[:, 2] & 1).sum()), int((want[:, 2] & 1).sum())
+        assert fell[0] <= fell[1], fell
 
 
 @pytest.fixture(scope="module")
@@ -365,7 +396,8 @@ def test_map_mate_sharded_matches_jax(synth, mesh8, tmesh, meshes_tp4, tp,
     ag = mate == "ga"
     preads, lens = ga_reads if ag else ct_reads
     convs = ["GA10", "GA11"] if ag else ["CT00", "CT01"]
-    jt, tt, bits, ubits = _placed(dts, convs, jmesh, pmesh, "uniq")
+    jt, tt, bits, ubits = _placed(dts, convs, jmesh, pmesh, "uniq",
+                                  equal=True)
     kw = dict(pattern_name="3", ag_wildcard=ag, search_bits=bits,
               verify_slab=tpe.VERIFY_SLAB, cand_slab=C,
               wl_factor=tpe.WL_FACTOR, flat_factor=tpe.FLAT_FACTOR,

@@ -569,8 +569,8 @@ def main(argv=None) -> int:
         counters.append(ht.counter)
         del ht
     rep["round_trip"] = rt
-    # the plans bound the runtime's own split of the tables (shards are
-    # equal bucket-key ranges, uneven in entries)
+    # the plans read the runtime's own split of the tables (bucket ranges
+    # of about equal entry counts)
     plan, plan_pe = plan_for(2, counters[:2]), plan_for(4, counters)
     rep["plan"] = hbm_plan.describe(plan)
     rep["plan_pe"] = hbm_plan.describe(plan_pe)

@@ -14,10 +14,10 @@ flat candidate stream is decoded on the host into the per-strand slabs
 shapes (or touch flagged buckets) are flagged for the exact host path --
 output is identical either way.
 
-With a mesh (``walt_tpu_torch.parallel``) every table is split over tp by
-bucket range and every chunk over dp, and the sharded steps replace the
-single-device ones; the device slab tiers then run even with the native
-library (walt_tpu's mesh policy).
+With a mesh (``walt_tpu_torch.parallel``) every table is split over tp into
+bucket ranges of about equal entry counts and every chunk over dp, and the
+sharded steps replace the single-device ones; the device slab tiers then
+run even with the native library (walt_tpu's mesh policy).
 
 Each chunk's device step runs as a CUDA graph on the card (``ops/graphs``,
 the counterpart of walt_tpu's ``jax.jit``): the backend's

@@ -25,21 +25,29 @@ backend's reserve (``TorchBackend.HBM_RESERVE``, measured on the card).  The
 entry limit: the pipeline's entry indices are int32, so each tp shard must
 hold fewer than ``pipeline.ENTRY_LIMIT`` (2^31) entries, which the runtime
 enforces per table and per shard (``parallel/sharded._shard_bounds``).
-Shards are equal bucket-key ranges, not equal entry counts, so the plan
-bounds the heaviest shard (:func:`heaviest_shard`): measured on the
-tables' counters when they exist, else from the genome size and a human
-genome's base composition.  The same split sizes each card's bytes: the
-per-bucket arrays (counters, flags) split evenly, the per-entry arrays
-(index, uniq runs or key16 prefixes) by each card's share of every table's
-entries (:func:`card_shares`), and the plan holds the heaviest card.  A
-C->T table has no C and a G->A table no G, so at tp=4 the T-range card
-holds about half of each C->T table: hg19 SE's heaviest card carries about
-twice the even split's bytes (walt_tpu's plan splits them evenly).  On a
-16 GiB device memory binds first and the entry limit never does.  On an
-80 GB card the limit binds first: one card would hold hg19's
-3.1e9-entry SE tables with the uniq index, but no int32 index reaches
-their entries, and the heavier of two shards holds ~70% of them (2.2e9,
-past 2^31 too), so hg19 deploys at tp=4.
+The plan bounds the heaviest shard (:func:`heaviest_shard`) and sizes
+each card's bytes: the per-bucket arrays (counters, flags) by each card's
+share of every table's buckets (:func:`bucket_shares`), the per-entry
+arrays (index, uniq runs or key16 prefixes) by its share of every table's
+entries (:func:`card_shares`), and the plan holds the heaviest card.
+Given the tables' counters, the shares are the runtime's own split of them
+(``parallel/sharded.balanced_bounds``: bucket ranges of about N/tp entries
+each).  From the genome size alone the plan bounds the runtime's heaviest
+card from above: each table's per-bucket arrays count on every card at
+the share of a human table's heaviest range under the runtime's split
+(:func:`_model_bucket_shares`: a range of few entries spans many
+buckets, 0.76 of a C->T table at tp=2), and the entries are a human
+genome's under
+walt_tpu's split into equal bucket-key ranges (:func:`_model_shares`),
+whose heaviest card holds more than the runtime's: a C->T table has no C
+and a G->A table no G, so at tp=4 that split puts about half of each C->T
+table on the T-range card, and hg19 SE's heaviest card carries about twice
+the even split's bytes (walt_tpu's plan splits them evenly).  On a 16 GiB
+device memory binds first and the entry limit never does.  On an 80 GB
+card the limit binds first: one card would hold hg19's 3.1e9-entry SE
+tables with the uniq index, but no int32 index reaches their entries, and
+the model's heavier of two shards holds ~70% of them (2.2e9, past 2^31
+too), so the size-only plan deploys hg19 at tp=4.
 """
 
 from __future__ import annotations
@@ -113,9 +121,9 @@ def _strand_bases(conversion: str) -> tuple:
 
 def _model_shares(tp: int, conversion: str) -> np.ndarray:
     """Share of a human ``conversion`` table's entries on each of ``tp`` (a
-    power of two) bucket-range shards.
+    power of two) bucket-range shards under walt_tpu's split.
 
-    The runtime splits the 4^12 buckets into tp equal key ranges, and a
+    walt_tpu splits the 4^12 buckets into tp equal key ranges, and a
     key's top bits are its position's first cared bases, two bits each (A <
     C < G < T, ``index/build.seed_keys``): shard c's top bits are c's.  A
     whole base takes its share; a last single bit takes its half of the
@@ -134,27 +142,74 @@ def _model_shares(tp: int, conversion: str) -> np.ndarray:
     return np.minimum(out, 1.0)
 
 
+def _model_bucket_shares(tp: int, conversion: str) -> np.ndarray:
+    """Share of a human ``conversion`` table's buckets on each of ``tp``
+    shards of the runtime's split (``parallel/sharded.balanced_bounds``),
+    each with a margin of ``_SHARE_MARGIN``.
+
+    Cut t falls where the table's entries reach t/tp of them.  With a
+    key's bases independent (:func:`_model_shares`), the key below a share
+    q of the entries follows base by base, two bits each: the base in whose
+    range q falls, then q within that range.  A cut that meets a range of
+    no entries (a C->T table's C, a G->A table's G) falls at its start, as
+    the runtime's does, so the range goes to the shard above.
+    """
+    p = _strand_bases(conversion)
+    cuts = [0.0]
+    for t in range(1, tp):
+        q, key, width = t / tp, 0.0, 1.0
+        for _ in range(12):  # a key's bases
+            width /= 4
+            b = 0
+            while b < 3 and (q > p[b] or p[b] == 0):
+                q -= p[b]
+                b += 1
+            key += b * width
+            q /= p[b]
+        cuts.append(key)
+    return np.minimum(np.diff(cuts + [1.0]) + _SHARE_MARGIN, 1.0)
+
+
 def heaviest_share(tp: int) -> float:
     """Share of a table's entries on the heaviest of ``tp`` (a power of two)
-    bucket-range shards of a human genome: at tp=2 the heavier shard holds
+    equal bucket-key ranges of a human genome, which bounds the runtime's
+    entry-balanced split from above: at tp=2 the heavier shard holds
     {G, T} of a C->T table ({A, C} of a G->A one), 1 - A = 0.5 + GC/2
     (0.705 for hg19); at tp=4 one base, T + C (A + G), 0.5; each wider
     split takes the next key bit the same way (:func:`_model_shares`)."""
     return float(_model_shares(tp, "CT00").max())
 
 
+def _runtime_split(tp: int, counters) -> list:
+    """(bucket bounds, entry bounds) of each table's tp split, the
+    runtime's own (``parallel/sharded.balanced_bounds``)."""
+    from walt_tpu_torch.parallel.sharded import balanced_bounds
+
+    return [balanced_bounds(c, tp) for c in counters]
+
+
 def card_shares(tp: int, n_tables: int, counters=None) -> np.ndarray:
     """(n_tables, tp) share of each resident table's entries on each of the
     ``tp`` cards: the runtime's own split of ``counters`` (the tables' CSR
-    counters) when given, else a human genome's (:func:`_model_shares`),
-    the tables taken in ``index/build.CONVERSIONS`` order (SE: CT00,
-    CT01; PE: all four)."""
+    counters) when given, else a human genome's under walt_tpu's equal
+    bucket-key ranges (:func:`_model_shares`), the tables taken in
+    ``index/build.CONVERSIONS`` order (SE: CT00, CT01; PE: all four)."""
     if counters is not None:
-        from walt_tpu_torch.parallel.sharded import bucket_range_bounds
-
-        return np.array([np.diff(bucket_range_bounds(c, tp)[1])
-                         / max(1, int(c[-1])) for c in counters])
+        return np.array([np.diff(eb) / max(1, int(c[-1])) for (_, eb), c
+                         in zip(_runtime_split(tp, counters), counters)])
     return np.array([_model_shares(tp, conv)
+                     for conv in CONVERSIONS[:n_tables]])
+
+
+def bucket_shares(tp: int, n_tables: int, counters=None) -> np.ndarray:
+    """(n_tables, tp) share of each resident table's buckets on each of the
+    ``tp`` cards: the runtime's own split of ``counters`` when given, else
+    on every card the share of a human table's heaviest shard
+    (:func:`_model_bucket_shares`), since any card may hold it."""
+    if counters is not None:
+        return np.array([np.diff(kb) / (len(c) - 1) for (kb, _), c
+                         in zip(_runtime_split(tp, counters), counters)])
+    return np.array([np.full(tp, _model_bucket_shares(tp, conv).max())
                      for conv in CONVERSIONS[:n_tables]])
 
 
@@ -162,15 +217,13 @@ def heaviest_shard(genome_bp: int, tp: int, counters=None) -> int:
     """Entries on the heaviest of ``tp`` shards of the largest table.
 
     ``counters``: the resident tables' CSR counters; the shards are then
-    the runtime's own split of them (``parallel/sharded``), for a genome
-    of any composition.  Without them, ``genome_bp`` entries per table
-    shared as :func:`heaviest_share` says for a human genome.
+    the runtime's own split of them (``parallel/sharded.balanced_bounds``),
+    for a genome of any composition.  Without them, ``genome_bp`` entries
+    per table shared as :func:`heaviest_share` says for a human genome.
     """
     if counters is not None:
-        from walt_tpu_torch.parallel.sharded import bucket_range_bounds
-
-        return max(int(np.diff(bucket_range_bounds(c, tp)[1]).max())
-                   for c in counters)
+        return max(int(np.diff(eb).max())
+                   for _, eb in _runtime_split(tp, counters))
     return math.ceil(genome_bp * heaviest_share(tp))
 
 
@@ -180,20 +233,22 @@ def card_bytes(genome_bp: int, n_tables: int, tp: int, uniq: bool = True,
     """Resident table bytes on the heaviest of ``tp`` cards.
 
     The packed genome words are replicated on every card; the per-bucket
-    arrays (counter and flags, and the uniq run counter) split evenly; the
+    arrays (counter and flags, and the uniq run counter) follow each
+    card's share of every table's buckets (:func:`bucket_shares`), the
     per-entry arrays (index, and the uniq runs or key16 prefixes, and the
-    exact_b key words when ``b_small``) follow each card's share of every
-    table's entries (:func:`card_shares` of ``counters``, else of a human
-    genome's ``n_tables`` tables).  With every share 1/tp this is walt_tpu's
-    even split.
+    exact_b key words when ``b_small``) its share of every table's entries
+    (:func:`card_shares`), both of ``counters``, else of a human genome's
+    ``n_tables`` tables.  With every share 1/tp this is walt_tpu's even
+    split.
     """
     base, uq, kw16 = table_bytes(genome_bp, uniq_ratio)
     pseq = genome_bp // 4 + 272
     buckets = 4 * NB1 + NB1 - 1 + (4 * NB1 if uniq else 0)
     entries = (base - pseq + (uq if uniq else kw16) - buckets
                + (12 * genome_bp if b_small else 0))
-    heavy = float(card_shares(tp, n_tables, counters).sum(axis=0).max())
-    return n_tables * pseq + int(n_tables * buckets / tp + entries * heavy)
+    per_card = (buckets * bucket_shares(tp, n_tables, counters).sum(axis=0)
+                + entries * card_shares(tp, n_tables, counters).sum(axis=0))
+    return n_tables * pseq + int(per_card.max())
 
 
 def plan_tables(genome_bp: int, n_tables: int = 2,

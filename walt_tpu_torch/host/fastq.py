@@ -30,6 +30,10 @@ _HEAD_LENGTH = 14  # util.hpp:189
 _SUFFICIENT_HEAD_MATCH = 11  # util.hpp:190
 _MIN_OVERLAP = 5  # util.hpp:191
 _MIN_READ = 1 << 12  # the least FgetsLines.fill asks the stream for
+#: the most FgetsLines.fill asks the stream for at once: a file's read(n)
+#: allocates n bytes first, and a caller may ask for more lines than the
+#: file holds (1 << 40 reads: "to the end")
+_MAX_READ = 1 << 28
 
 
 def _newlines(buf, need: int):
@@ -76,7 +80,8 @@ class FgetsLines:
         size = len(self._buf)
         while count < n_lines:
             per_line = through / count if count else self._line_bytes
-            want = max(_MIN_READ, int((n_lines - count) * per_line * 17 / 16))
+            want = min(_MAX_READ, max(_MIN_READ, int(
+                (n_lines - count) * per_line * 17 / 16)))
             chunk = self._f.read(want)
             if not chunk:
                 break

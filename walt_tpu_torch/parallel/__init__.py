@@ -5,9 +5,11 @@ OpenMP parallel-for over the reads of a batch (src/walt/mapping.cpp:494,
 src/walt/paired.cpp:664); here it is a 2-D mesh of torch devices:
 
 - ``dp`` (data parallel): read batches split across devices;
-- ``tp`` (table parallel): the CSR hash table split by bucket-key range, so
-  that every device-local table stays below 2^31 entries and within one
-  device's memory (an hg19 table holds 3.09e9 entries).
+- ``tp`` (table parallel): the CSR hash table split into bucket ranges of
+  about equal entry counts, so that every device-local table stays below
+  2^31 entries and within one device's memory (an hg19 table holds 3.09e9
+  entries), and each shard owns about 1/tp of a chunk's (read, seed)
+  pairs.
 
 ``multihost`` spreads read files over processes (``torch.distributed``).
 """

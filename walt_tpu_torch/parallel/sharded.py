@@ -1,11 +1,23 @@
 """Sharded mapping: reads over ``dp``, the hash table over ``tp``.
 
 Port of ``walt_tpu/parallel/sharded.py``.  Table sharding is by contiguous
-bucket-key range: shard ``s`` of ``T`` owns buckets ``[s*nb/T,
-(s+1)*nb/T)`` with a localized CSR (counter rebased to the shard's first
-entry).  A bucket lives wholly on one shard, so for a given (read, seed) at
-most one shard produces candidates, and the pipeline's ``tp_route`` mode
-compacts each shard's owned (read, seed) pairs before the search.
+bucket-key range: shard ``s`` of ``T`` owns buckets ``[k_s, k_{s+1})`` with
+a localized CSR (counter rebased to the shard's first entry).  A bucket
+lives wholly on one shard, so for a given (read, seed) at most one shard
+produces candidates, and the pipeline's ``tp_route`` mode compacts each
+shard's owned (read, seed) pairs before the search.
+
+The routed capacity and the worklist of a shard's pass are sized for 1/T
+of the (read, seed) pairs, so the port cuts each table where its own CSR
+counter reaches each multiple of N/T entries (:func:`balanced_bounds`).
+walt_tpu cuts T equal key ranges (``k_s = s*nb/T``,
+:func:`bucket_range_bounds`), but the top key bits are a position's first
+cared base: at tp=4 a human C->T table has about half its entries on the
+T range and almost none on the C range, and the heavy shard's owned pairs
+overflow its routed capacity, which sends a suffix of every chunk to the
+host.  Either split is bucket-granular, so the merges and the host decode
+are the same; ``bucket_bounds`` pins walt_tpu's ranges where a test holds
+a shard to walt_tpu's bit for bit.
 
 walt_tpu runs one ``shard_map`` program over a JAX mesh: one dispatch runs
 every shard on every chip at once.  Here a :class:`Mesh` is a (dp, tp)
@@ -37,7 +49,7 @@ walt_tpu's padded ``(T, max_len)`` stacks, have no counterpart in torch);
 each (shard, distinct device) is placed once and shared by the dp rows on
 that device, and the packed genome and chromosome starts are placed once
 per distinct device.  :func:`shard_device_table` keeps walt_tpu's padded
-host layout, bit for bit.
+host layout (bit for bit at walt_tpu's equal ranges).
 """
 
 from __future__ import annotations
@@ -139,49 +151,92 @@ class ShardedTables:
     the largest shard as in walt_tpu."""
 
     key_base: np.ndarray  # uint32 (T,) first bucket of each shard
-    counter: np.ndarray  # uint32 (T, nb/T + 1) localized CSR offsets
+    # uint32 (T, max_nbl + 1) localized CSR offsets, max_nbl the most
+    # buckets of a shard; a shorter shard's tail repeats its entry count
+    counter: np.ndarray
     index: np.ndarray  # uint32 (T, max_len) padded position slices
     key_words: np.ndarray  # uint32 (T, max_len, nw), or uint16 (T, max_len)
-    bucket_flagged: np.ndarray  # uint8 bit mask (T, nb/T)
+    bucket_flagged: np.ndarray  # uint8 bit mask (T, max_nbl), tail 0
     pseq: np.ndarray  # uint32, replicated packed converted genome words
     start_index: np.ndarray  # uint32, replicated
     max_bucket_bits: int
     # word-0 run dedup, localized per shard: counter over runs, run key
     # words, run start entry offsets
-    uniq_counter: np.ndarray  # uint32 (T, nb/T + 1)
+    uniq_counter: np.ndarray  # uint32 (T, max_nbl + 1), tail as counter
     uniq_words: np.ndarray  # uint32 (T, max_ulen)
     uniq_off: np.ndarray  # uint32 (T, max_ulen + 1)
     uniq_bits: int
 
 
 def bucket_range_bounds(counter: np.ndarray, n_shards: int):
-    """(buckets per shard, entry bounds (T + 1,) int64) of the split of a
-    CSR ``counter`` into ``n_shards`` equal bucket-key ranges; raises when
-    the buckets do not divide."""
+    """walt_tpu's split of a CSR ``counter`` into ``n_shards`` equal
+    bucket-key ranges: (bucket bounds, entry bounds), each (T + 1,) int64;
+    raises when the buckets do not divide."""
     nb = counter.shape[0] - 1
     if nb % n_shards:
         raise ValueError(f"{nb} buckets not divisible by {n_shards} shards")
-    nbl = nb // n_shards
-    return nbl, counter[::nbl][: n_shards + 1].astype(np.int64)
+    kb = np.arange(n_shards + 1, dtype=np.int64) * (nb // n_shards)
+    return kb, counter[kb].astype(np.int64)
 
 
-def _shard_bounds(counter: np.ndarray, n_shards: int, where: str):
-    """:func:`bucket_range_bounds`, raising when a shard would overflow the
-    pipeline's int32 entry indices."""
-    nbl, bounds = bucket_range_bounds(counter, n_shards)
+def balanced_bounds(counter: np.ndarray, n_shards: int):
+    """The runtime's split of a CSR ``counter`` into ``n_shards`` bucket
+    ranges of about equal entry counts: (bucket bounds, entry bounds), each
+    (T + 1,) int64.
+
+    Cut t falls on the bucket boundary nearest t*N/T entries; cuts are then
+    moved apart so that every shard holds at least one bucket.  A shard
+    holds at most ceil(N/T) + the largest bucket's entries."""
+    nb = counter.shape[0] - 1
+    if nb < n_shards:
+        raise ValueError(f"{nb} buckets do not split into {n_shards} shards")
+    target = (np.arange(1, n_shards, dtype=np.int64) * int(counter[-1])
+              // n_shards)
+    hi = np.clip(np.searchsorted(counter, target.astype(counter.dtype)),
+                 1, nb)
+    below = target - counter[hi - 1].astype(np.int64)
+    above = counter[hi].astype(np.int64) - target
+    kb = np.concatenate([[0], np.where(below < above, hi - 1, hi), [nb]])
+    for t in range(1, n_shards):  # strictly increasing ...
+        kb[t] = max(kb[t], kb[t - 1] + 1)
+    for t in range(n_shards - 1, 0, -1):  # ... and below nb
+        kb[t] = min(kb[t], kb[t + 1] - 1)
+    return kb, counter[kb].astype(np.int64)
+
+
+def _shard_bounds(counter: np.ndarray, n_shards: int, where: str,
+                  bucket_bounds=None):
+    """(bucket bounds, entry bounds) of a table's tp split:
+    :func:`balanced_bounds`, or ``bucket_bounds`` (T + 1 bucket indices
+    from 0 to nb, strictly increasing) when given; raises when a shard
+    would overflow the pipeline's int32 entry indices."""
+    if bucket_bounds is None:
+        kb, bounds = balanced_bounds(counter, n_shards)
+    else:
+        kb = np.asarray(bucket_bounds, dtype=np.int64)
+        nb = counter.shape[0] - 1
+        if (kb.shape != (n_shards + 1,) or kb[0] != 0 or kb[-1] != nb
+                or (np.diff(kb) <= 0).any()):
+            raise ValueError(f"{where}: bucket bounds {kb.tolist()} do not "
+                             f"split {nb} buckets into {n_shards} shards")
+        bounds = counter[kb].astype(np.int64)
     pipeline.check_entry_limit(int(np.diff(bounds).max()), where)
-    return nbl, bounds
+    return kb, bounds
 
 
 def shard_device_table(dt: DeviceTable, n_shards: int,
-                       accel: str = "uniq",
-                       free_input: bool = False) -> ShardedTables:
+                       accel: str = "uniq", free_input: bool = False,
+                       bucket_bounds=None) -> ShardedTables:
     """Split one host DeviceTable into ``n_shards`` bucket-range shards.
 
-    walt_tpu's host layout, bit for bit.  ``accel``: "uniq" (word-0 run
-    index + the stored key words) or "key16" (16-bit prefix keys and no
-    uniq runs; needs word 0 in ``dt.key_words``).  ``free_input`` drops
-    ``dt.key_words`` once the key16 prefixes are derived from it.
+    walt_tpu's padded host layout: the per-entry arrays padded to the
+    largest shard, the per-bucket arrays to the shard of most buckets.
+    ``bucket_bounds``: as for :func:`shard_and_place` (walt_tpu's equal
+    ranges, :func:`bucket_range_bounds`, give walt_tpu's tables bit for
+    bit).  ``accel``: "uniq" (word-0 run index + the stored key words) or
+    "key16" (16-bit prefix keys and no uniq runs; needs word 0 in
+    ``dt.key_words``).  ``free_input`` drops ``dt.key_words`` once the
+    key16 prefixes are derived from it.
     """
     if dt.key_words is None:
         raise ValueError(
@@ -190,11 +245,13 @@ def shard_device_table(dt: DeviceTable, n_shards: int,
         )
     if accel not in ("uniq", "key16"):
         raise ValueError(f"unknown accel {accel!r}")
-    nbl, bounds = _shard_bounds(dt.counter, n_shards,
-                                f"shard_device_table(tp={n_shards})")
+    kb, bounds = _shard_bounds(dt.counter, n_shards,
+                               f"shard_device_table(tp={n_shards})",
+                               bucket_bounds)
     max_len = max(1, int(np.diff(bounds).max()))
+    max_nbl = int(np.diff(kb).max())
 
-    counter = np.zeros((n_shards, nbl + 1), dtype=np.uint32)
+    counter = np.zeros((n_shards, max_nbl + 1), dtype=np.uint32)
     index = np.zeros((n_shards, max_len), dtype=np.uint32)
     nw = dt.key_words.shape[1]
     if accel == "key16":
@@ -206,36 +263,38 @@ def shard_device_table(dt: DeviceTable, n_shards: int,
         key_words = np.zeros((n_shards, max_len, nw), dtype=np.uint32)
     # uint8 bit masks, as in the unsharded table (walt_tpu casts them to
     # bool, which loses the exact_b bit)
-    flagged = np.zeros((n_shards, nbl), dtype=np.uint8)
+    flagged = np.zeros((n_shards, max_nbl), dtype=np.uint8)
 
     if accel == "uniq":
         g_uw, g_uo, g_uc, uniq_bits = device_index.build_uniq_host(
             dt.key_words[:, 0], dt.counter)
-        u_bounds = g_uc[::nbl][: n_shards + 1].astype(np.int64)
+        u_bounds = g_uc[kb].astype(np.int64)
         max_ulen = max(1, int(np.diff(u_bounds).max()))
     else:
         max_ulen, uniq_bits = 1, 0
-    uniq_counter = np.zeros((n_shards, nbl + 1), dtype=np.uint32)
+    uniq_counter = np.zeros((n_shards, max_nbl + 1), dtype=np.uint32)
     uniq_words = np.zeros((n_shards, max_ulen), dtype=np.uint32)
     uniq_off = np.zeros((n_shards, max_ulen + 1), dtype=np.uint32)
     for s in range(n_shards):
         a, b = int(bounds[s]), int(bounds[s + 1])
-        counter[s] = (dt.counter[s * nbl:(s + 1) * nbl + 1]
-                      - dt.counter[s * nbl])
+        k0, k1 = int(kb[s]), int(kb[s + 1])
+        counter[s, : k1 - k0 + 1] = dt.counter[k0:k1 + 1] - dt.counter[k0]
+        counter[s, k1 - k0 + 1:] = b - a
         index[s, : b - a] = dt.index[a:b]
         key_words[s, : b - a] = (key16_full[a:b] if accel == "key16"
                                  else dt.key_words[a:b])
-        flagged[s] = dt.bucket_flagged[s * nbl:(s + 1) * nbl]
+        flagged[s, : k1 - k0] = dt.bucket_flagged[k0:k1]
         if accel != "uniq":
             continue
         au, bu = int(u_bounds[s]), int(u_bounds[s + 1])
-        uniq_counter[s] = g_uc[s * nbl:(s + 1) * nbl + 1] - np.uint32(au)
+        uniq_counter[s, : k1 - k0 + 1] = g_uc[k0:k1 + 1] - np.uint32(au)
+        uniq_counter[s, k1 - k0 + 1:] = bu - au
         uniq_words[s, : bu - au] = g_uw[au:bu]
         # run starts rebased to the shard's first entry; g_uo[bu] is the
         # next shard's first entry == this shard's entry count
         uniq_off[s, : bu - au + 1] = g_uo[au:bu + 1] - np.uint32(a)
     return ShardedTables(
-        key_base=np.arange(n_shards, dtype=np.uint32) * np.uint32(nbl),
+        key_base=kb[:-1].astype(np.uint32),
         counter=counter, index=index, key_words=key_words,
         bucket_flagged=flagged, pseq=dt.pseq, start_index=dt.start_index,
         max_bucket_bits=dt.max_bucket_bits, uniq_counter=uniq_counter,
@@ -250,12 +309,16 @@ def _at_least_one(t: torch.Tensor) -> torch.Tensor:
 
 
 def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
-                    accel: str = "uniq", n_key_words: int = 0):
+                    accel: str = "uniq", n_key_words: int = 0,
+                    bucket_bounds=None):
     """Shard one prepared table over the mesh's tp axis and place it.
 
-    The same bucket-range layout as :func:`shard_device_table`, but each
-    shard is exact-size and its accelerating structure is built on its own
-    device from its own entries (``ops/device_index`` builders): a bucket
+    Shard t holds buckets [k_t, k_{t+1}) of ``bucket_bounds`` (T + 1
+    bucket indices; default :func:`balanced_bounds` of the table's
+    counter).  The same bucket-range layout as :func:`shard_device_table`,
+    but each shard is exact-size and its accelerating structure is built
+    on its own device from its own entries (``ops/device_index``
+    builders): a bucket
     lives on one shard and word-0 runs break at every bucket start, so a
     shard's uniq runs are walt_tpu's global runs rebased to the shard.
     ``accel``: "uniq" or "key16" (see :func:`shard_device_table`);
@@ -274,12 +337,14 @@ def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
     if accel == "key16" and n_key_words:
         raise ValueError("key16 shards store no u32 key words")
     tp = mesh.shape["tp"]
-    nbl, bounds = _shard_bounds(dt.counter, tp, f"shard_and_place(tp={tp})")
+    kb, bounds = _shard_bounds(dt.counter, tp, f"shard_and_place(tp={tp})",
+                               bucket_bounds)
     genome = {}  # device -> (pseq, start_index)
     placed = {}  # (shard, device) -> shard dict
     uniq_bits = 0
     for t in range(tp):
         a, b = int(bounds[t]), int(bounds[t + 1])
+        k0, k1 = int(kb[t]), int(kb[t + 1])
         for device in dict.fromkeys(row[t] for row in mesh.devices):
             with perf.stage("setup.place"):
                 if device not in genome:
@@ -287,13 +352,12 @@ def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
                                       packing.from_np(dt.start_index, device))
                 pseq, start_index = genome[device]
                 counter = packing.from_np(
-                    dt.counter[t * nbl:(t + 1) * nbl + 1]
-                    - dt.counter[t * nbl], device)
+                    dt.counter[k0:k1 + 1] - dt.counter[k0], device)
                 index = packing.from_np(dt.index[a:b], device)
                 sh = dict(
-                    key_base=t * nbl, pseq=pseq, start_index=start_index,
+                    key_base=k0, pseq=pseq, start_index=start_index,
                     counter=counter, bucket_flagged=torch.from_numpy(
-                        dt.bucket_flagged[t * nbl:(t + 1) * nbl]).to(device),
+                        dt.bucket_flagged[k0:k1]).to(device),
                 )
                 if accel == "key16":
                     sh["key_words"] = _at_least_one(

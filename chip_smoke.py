@@ -5,7 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, one line of output each (any failure raises and exits non-zero):
+Phases, one line of output each (any failure raises and exits non-zero).
+The numbers name the phases; ``main`` runs them in the order 1-9, 17,
+10-13, 15, 16, 18, 19 (there is no phase 14):
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them;
@@ -75,26 +77,18 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     to phase 11's exact host path.  Prints the largest genome position the
     device emitted (at least 2^31).
 
-14. stage timings (run right after phase 9, on the CT00 and CT01 tables
-    its single-device backend built): one 131,072-read chunk of phase 4's
-    reads through the SE step and one of its mate-1 reads through the PE
-    mate step, with ``stages=None`` and with an ``ops/stages``
-    CudaStageTimer (unprofiled, then under torch.profiler): outputs
-    bit-identical, the stage marks in order, each pass's stage busy times
-    and launches within 2% of the pass's totals, no device work outside a
-    stage, exactly one fused-stage launch in each pass's ``verify`` stage.
-    Prints one line: per stage, stream ms, device busy ms and launches.
-
-15. tuning knobs (run last, on phase 11's 250,000 reads and 125,000
-    pairs, fresh backends, the environment restored after each run): SE
-    under ``WALTX_CHUNK=65536``, ``WALTX_WL1=1.25``, ``verify_slab_t1=16``
-    and a ``WALTX_HBM_GB`` that fits both tables' key16 key words but not
-    the uniq runs or u32 word 0; PE under ``WALTX_PE_SLAB/WL/FLAT`` = 8 / 2
-    / 8 and a ``WALTX_HBM_GB`` under which all four tables take u32 word 0.
-    The backend's own ladder must pick those rungs, MR and .mapstats must
-    equal phase 11's exact host path byte for byte, and each run must
-    launch the fused stage and not K1.  Prints one ``knobs`` line: rung
-    per table, shares, launches and seconds.
+15. other shapes and the memory ladder (after phase 13, on phase 11's
+    250,000 reads and 125,000 pairs, fresh backends, the environment
+    restored after each run): SE at chunk 65,536, ``verify_slab_t1`` 16
+    and ``_wl1`` 1.25, under a ``WALTX_HBM_GB`` that fits both tables'
+    key16 key words but not the uniq runs or u32 word 0; PE at the mate
+    step's shapes 8 / 2 / 8 (``pe_verify_slab``, ``pe_wl``,
+    ``pe_flat_factor``, set on the backend) under a ``WALTX_HBM_GB`` under
+    which all four tables take u32 word 0.  The backend's own ladder must
+    pick those rungs, MR and .mapstats must equal phase 11's exact host
+    path byte for byte, and each run must launch the fused stage and not
+    K1.  Prints one ``knobs`` line: rung per table, shares, launches and
+    seconds.
 
 16. dp scaling (after phase 15, on phase 4's index): the measurement of
     ``tools/dp_scaling_torch.py`` on 131,072 reads per mesh size, 2 reps
@@ -107,8 +101,8 @@ use the first 250,000 reads and 125,000 pairs of phase 4's data:
     program's reads/s, its implied (virtual) or real efficiency and its
     launches.
 
-17. CUDA graphs (run after phase 14, on the CT00 and CT01 tables phase
-    9's backends built): one 131,072-read chunk through the SE step and
+17. CUDA graphs (run right after phase 9, on the CT00 and CT01 tables
+    its backends built): one 131,072-read chunk through the SE step and
     one of mate-1 reads through the PE mate step, on one card and on the
     mesh, as the backend runs them (graph replays of its ``ops/graphs``
     step cache) and eagerly (one card: with an ``ops/stages`` recorder;
@@ -1633,9 +1627,8 @@ def shifted_phase(index, fastq, pe, se_sub, device, shares, F: int):
 
 @contextlib.contextmanager
 def environ(**env):
-    """``os.environ`` with ``env`` set, restored whole afterwards: the
-    backend's knobs (``WALTX_CHUNK`` wins over explicit arguments) must not
-    reach a later backend."""
+    """``os.environ`` with ``env`` set, restored whole afterwards: a
+    ``WALTX_HBM_GB`` budget must not reach a later backend."""
     saved = dict(os.environ)
     os.environ.update({k: str(v) for k, v in env.items()})
     try:
@@ -1666,43 +1659,42 @@ def ladder_budget_gib(index: str, suffixes, kw_bytes: float) -> float:
 
 
 def knobs_phase(index, se_sub, pe_sub, device):
-    """Phase 15: the tuning knobs on the card, with fresh backends and the
-    environment restored after each run, on phase 11's reads and pairs.
-    SE: ``WALTX_CHUNK=65536``, ``WALTX_WL1=1.25``, ``verify_slab_t1=16`` and
-    a ``WALTX_HBM_GB`` that fits both tables on key16 only; PE:
-    ``WALTX_PE_SLAB/WL/FLAT`` 8 / 2 / 8 (walt_tpu's round-3 shapes) and a
-    ``WALTX_HBM_GB`` under which all four tables take u32 word 0.  Each
-    run's MR and .mapstats must equal phase 11's exact host path, its
-    tables take those rungs by the backend's own ladder, and the fused
-    stage is launched (K1 never)."""
+    """Phase 15: other device shapes and the memory ladder on the card,
+    with fresh backends and the environment restored after each run, on
+    phase 11's reads and pairs.  SE: chunk 65,536, ``verify_slab_t1`` 16,
+    ``_wl1`` 1.25 and a ``WALTX_HBM_GB`` that fits both tables on key16
+    only; PE: the mate step's shapes 8 / 2 / 8 (walt_tpu's round-3 shapes,
+    set on the backend) and a ``WALTX_HBM_GB`` under which all four tables
+    take u32 word 0.  Each run's MR and .mapstats must equal phase 11's
+    exact host path, its tables take those rungs by the backend's own
+    ladder, and the fused stage is launched (K1 never)."""
     from walt_tpu_torch.core.paired_end import process_paired_end
     from walt_tpu_torch.core.single_end import process_single_end
     from walt_tpu_torch.core.torch_backend import TorchBackend
 
     work = os.path.dirname(index)
     runs = [
-        ("SE", dict(WALTX_CHUNK=65536, WALTX_WL1=1.25,
-                    WALTX_HBM_GB=ladder_budget_gib(
-                        index, ("_CT00", "_CT01"), 2.5)),
-         dict(verify_slab_t1=16), "key16",
+        ("SE", ladder_budget_gib(index, ("_CT00", "_CT01"), 2.5),
+         dict(chunk=65536, verify_slab_t1=16), dict(_wl1=1.25), "key16",
          lambda b, out: process_single_end(index, se_sub, out, backend=b),
          "mesh_exact.mr"),
-        ("PE", dict(WALTX_PE_SLAB=8, WALTX_PE_WL=2, WALTX_PE_FLAT=8,
-                    WALTX_HBM_GB=ladder_budget_gib(
-                        index, ("_CT00", "_CT01", "_GA10", "_GA11"), 4.5)),
-         {}, "u32 word0",
+        ("PE", ladder_budget_gib(
+            index, ("_CT00", "_CT01", "_GA10", "_GA11"), 4.5), {},
+         dict(pe_verify_slab=8, pe_wl=2, pe_flat_factor=8), "u32 word0",
          lambda b, out: process_paired_end(index, pe_sub[0], pe_sub[1], out,
                                            backend=b),
          "mesh_exact_pe.mr"),
     ]
     t0 = time.perf_counter()
     notes = []
-    for mode, env, kw, rung, process, ref in runs:
+    for mode, budget, kw, shapes, rung, process, ref in runs:
         out = os.path.join(work, f"knobs_{mode.lower()}.mr")
         fresh(out)
-        with environ(**env):
+        with environ(WALTX_HBM_GB=budget):
             rec = Recorder()
             b = rec.watch(TorchBackend(device=device, **kw))
+            for name, value in shapes.items():
+                setattr(b, name, value)
             wl1 = b._wl1
             zero_counts()
             _, wall = timed(lambda: process(b, out))
@@ -1724,196 +1716,12 @@ def knobs_phase(index, se_sub, pe_sub, device):
             raise AssertionError(f"knobs {mode}: launches {c}: the fused "
                                  f"stage must run, K1 never")
         notes.append(f"{mode} ({shape}, WALTX_HBM_GB "
-                     f"{env['WALTX_HBM_GB']:.3f}): rungs {rungs}, share "
+                     f"{budget:.3f}): rungs {rungs}, share "
                      f"{share:.4f}, launches {c}, {wall:.2f} s (tables "
                      f"included)")
     say("knobs", f"phase 15, byte-identical to phase 11's exact host path, "
                  f"each table's rung by the backend's own ladder, in "
                  f"{time.perf_counter() - t0:.1f} s: " + "; ".join(notes))
-
-
-#: most a pass's stage sums may differ from its totals (busy time, launches)
-STAGE_SUM_TOL = 0.02
-
-
-def check_stage_split(timer, split, n_pass: int, step_stage) -> None:
-    """Raise unless one device step's stage record is whole: the marks came
-    in order (every stage of each of ``n_pass`` strand passes, then
-    ``step_stage`` when given), every host launch has its device record,
-    every pass's stage busy times and launches add up to the pass's totals
-    within STAGE_SUM_TOL, no device work was launched outside a stage, each pass's ``verify`` stage is exactly one
-    launch of the fused stage kernel, which no other stage launched, and
-    every pass's ``keys`` stage made as many launches as the others (its
-    launches follow the static shapes alone, so a short one lost device
-    events at the start of the profiling window)."""
-    from walt_tpu_torch.ops import stages as st
-
-    want = [(t, s) for t in range(n_pass) for s in st.STRAND_STAGES]
-    want += [(None, step_stage)] if step_stage else []
-    if timer.names() != want:
-        raise AssertionError(f"stage marks {timer.names()} != {want}")
-    lost = sum(rec.get("dropped", 0) for rec in split.values())
-    if lost:
-        raise AssertionError(f"{lost} host launches have no device record")
-    if split.get((None, None), {}).get("launches", 0):
-        raise AssertionError(f"device work launched outside any stage: "
-                             f"{brief(split[(None, None)])}")
-    for t in range(n_pass):
-        total = split[(t, "strand")]
-        parts = [split.get((t, s), dict(busy_ms=0.0, launches=0))
-                 for s in st.STRAND_STAGES]
-        for k in ("busy_ms", "launches"):
-            got = sum(p[k] for p in parts)
-            if abs(got - total[k]) > STAGE_SUM_TOL * total[k]:
-                raise AssertionError(f"pass {t}: stage {k} sum {got} != "
-                                     f"the pass's {total[k]}")
-        v = split.get((t, "verify"), {})
-        if v.get("launches") != 1 or not any("verify_stage_kernel" in n
-                                             for n in v["names"]):
-            raise AssertionError(f"pass {t}: the verify stage is not one "
-                                 f"fused-stage launch: {brief(v)}")
-    keys = {split.get((t, "keys"), {}).get("launches") for t in range(n_pass)}
-    if len(keys) != 1:
-        raise AssertionError(f"the keys stages made {sorted(keys)} launches")
-    fused = sum(c for (_, s), rec in split.items() if s != "strand"
-                for n, c in rec["names"].items() if "verify_stage_kernel" in n)
-    if fused != n_pass:
-        raise AssertionError(f"{fused} fused-stage launches in {n_pass} "
-                             f"passes")
-
-
-def profiled_stages(step, device, n_pass: int, step_stage, trace: str,
-                    reps: int = 1):
-    """``reps`` calls of ``step(timer)``, each with its own CudaStageTimer,
-    in one torch.profiler window after a warm-up call (``stages.profiled``),
-    and each call's ``device_split``.  A window whose records fail
-    :func:`check_stage_split` (the profiler has lost device records at the
-    start of a window) is profiled again, at most PROFILE_ATTEMPTS times;
-    a fault of the marks fails every attempt alike.  Returns (outputs,
-    timers, splits, attempts)."""
-    from walt_tpu_torch.ops import stages as st
-
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        timers = [st.CudaStageTimer(device) for _ in range(reps)]
-        outs, events = st.profiled(lambda: [step(t) for t in timers],
-                                   lambda: step(None), trace)
-        os.unlink(trace)
-        splits = [t.device_split(events) for t in timers]
-        try:
-            unmatched = st.unmatched_device_events(events)
-            if unmatched:
-                raise AssertionError(f"{unmatched} device events have no "
-                                     f"launching host call in the trace")
-            # the window holds the calls alone: each device event belongs
-            # to a range of one of the timers
-            claimed = sum(rec["launches"] for split in splits
-                          for (_, s), rec in split.items() if s != "strand")
-            if claimed != st.device_events(events):
-                raise AssertionError(
-                    f"{st.device_events(events) - claimed} device events "
-                    f"of the window were launched in no timer's range")
-            for t, split in zip(timers, splits):
-                check_stage_split(t, split, n_pass, step_stage)
-            return outs, timers, splits, attempt
-        except AssertionError as e:
-            if attempt == PROFILE_ATTEMPTS:
-                raise
-            say("stages", f"profiling window {attempt} incomplete ({e}); "
-                          f"profiling again")
-
-
-def brief(rec: dict) -> str:
-    """A stage record of ``device_split`` in one short line."""
-    top = ", ".join(f"{n[:60]} x{c}" for n, c in rec["names"].most_common(3))
-    return (f"{rec['launches']} launches, {rec['busy_ms']:.3f} ms busy "
-            f"({top})")
-
-
-def stage_phase(single, index, fastq, pe, device) -> None:
-    """Phase 14, on the tables phase 9's single-device backend built (CT00
-    and CT01): one 131,072-read chunk of phase 4's reads through the SE
-    step (tier-1 shape, every seed) and one chunk of its mate-1 reads
-    through the PE mate step, each with ``stages=None`` and then with a
-    ``CudaStageTimer`` (once unprofiled for stream times, once under
-    torch.profiler for busy times and launches).  Outputs with the timer
-    must be bit-identical to those without, and each record whole
-    (:func:`check_stage_split`).  Prints one line: per stage, stream ms /
-    device busy ms / launches."""
-    import torch
-
-    from walt_tpu_torch.constants import get_pattern
-    from walt_tpu_torch.core.torch_backend import TorchBackend
-    from walt_tpu_torch.index import io_walt
-    from walt_tpu_torch.ops import pe_map, pipeline, se_fold
-    from walt_tpu_torch.ops import stages as st
-
-    pattern = get_pattern("3")
-    gm, _ = io_walt.read_head(index)
-    n_cached = len(single._tables)
-    built = [single._device_table(g, ht, pattern, 1) for g, ht in
-             (io_walt.read_table_cached(index + s, gm)
-              for s in ("_CT00", "_CT01"))]
-    if len(single._tables) != n_cached:
-        raise AssertionError("phase 14 built a table phase 9 had not")
-    devs = tuple(d for _, d in built)
-    bits = tuple(dt.max_bucket_bits for dt, _ in built)
-    ubits = tuple(dt.uniq_bits for dt, _ in built)
-
-    def chunk_of(path):
-        codes, lens = load_reads(path, MAIN_B)
-        _, _, pc, pl = next(single._chunks(codes, lens, pattern, MAIN_B))
-        return pc, pl, TorchBackend._full_mask(lens, pattern)
-
-    se_in, pe_in = chunk_of(fastq), chunk_of(pe[0])
-    common = dict(pattern_name="3", ag_wildcard=False, search_bits=bits,
-                  uniq_bits=ubits, exact_b=False)
-
-    def se(stages):
-        pc, pl, fm = se_in
-        return (se_fold.map_single_end_device(
-            pc, pl, 5000, 6, devs, verify_slab=pipeline.VERIFY_SLAB_T1,
-            wl_factor=1.5, full_mask=fm, stages=stages, **common),)
-
-    def pe_mate(stages):
-        pc, pl, fm = pe_in
-        return pe_map.map_mate_device(
-            pc, pl, 5000, 6, devs, verify_slab=pe_map.VERIFY_SLAB,
-            cand_slab=single.cand_slab, wl_factor=pe_map.WL_FACTOR,
-            flat_factor=pe_map.FLAT_FACTOR, full_mask=fm, stages=stages,
-            **common)
-
-    trace = os.path.join(ROOT, "build", "stage_trace.json")
-    t0 = time.perf_counter()
-    lines = []
-    for mode, step, step_stage in (("SE step", se, st.SE_STEP_STAGE),
-                                   ("PE mate", pe_mate, st.PE_STEP_STAGE)):
-        ref = step(None)
-        timed_t = st.CudaStageTimer(device)
-        with_timer = step(timed_t)
-        torch.cuda.synchronize(device)
-        stream = timed_t.stream_ms()
-        (profiled_out,), (prof_t,), (split,), attempts = profiled_stages(
-            step, device, 2, step_stage, trace)
-        for out in (with_timer, profiled_out):
-            if not all(a.dtype == b.dtype and torch.equal(a, b)
-                       for a, b in zip(out, ref)):
-                raise AssertionError(f"{mode}: outputs with the stage "
-                                     f"timer differ from stages=None")
-        if timed_t.names() != prof_t.names():
-            raise AssertionError(f"{mode}: the two timers saw other marks")
-        names = ("CT00", "CT01")
-        cells = [f"{s if t is None else names[t] + '.' + s} "
-                 f"{ms:.3f}/{split.get((t, s), {}).get('busy_ms', 0):.3f}/"
-                 f"{split.get((t, s), {}).get('launches', 0)}"
-                 for (t, s), ms in stream.items()]
-        lines.append(f"{mode} (profiling window {attempts}): "
-                     + ", ".join(cells))
-    say("stages", f"phase 14, one {MAIN_B}-read chunk (stream ms / device "
-                  f"busy ms / launches per stage; each pass whole as "
-                  f"'strand'), bit-identical with and without the timer, "
-                  f"stage sums within {STAGE_SUM_TOL:.0%} of each pass, one "
-                  f"fused-stage launch per verify stage, in "
-                  f"{time.perf_counter() - t0:.1f} s: " + "; ".join(lines))
 
 
 #: calls per wall time and profiling window of phase 17
@@ -2143,7 +1951,7 @@ def busy_ms(fn, reps: int = GRAPH_REPS):
 
 
 def graph_phase(single, mesh_b, index, fastq, pe) -> None:
-    """Phase 17 (after phase 14, on the CT00 and CT01 tables phase 9's
+    """Phase 17 (right after phase 9, on the CT00 and CT01 tables phase 9's
     backends built): one 131,072-read chunk of phase 4's reads through the
     SE step (tier-1 shape, every seed) and one of its mate-1 reads through
     the PE mate step, on one card and on the mesh, as the backend runs them
@@ -2662,7 +2470,6 @@ def main() -> int:
                               N_MESH_PAIRS) for i, f in enumerate(pe, 1))
     mesh_b, single, ws_mesh = mesh_se_parity(index, se_sub, mesh, device,
                                              N_MESH_READS, MIN_DEVICE_SHARE)
-    stage_phase(single, index, fastq, pe, device)
     graph_phase(single, mesh_b, index, fastq, pe)
     ws_mesh_pe = mesh_pe_parity(index, pe_sub, mesh_b, single, N_MESH_PAIRS,
                                 MIN_MESH_PE_SHARE)

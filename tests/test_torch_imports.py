@@ -1,12 +1,8 @@
 """walt_tpu_torch stands alone: it imports neither JAX nor walt_tpu.
 
 - An AST scan of every module of the port, ``chip_smoke.py``,
-  ``tools/profile_torch_smoke.py``, ``tools/stage_kernel_diag.py``,
-  ``tools/hg19_scale_torch.py``, ``tools/uniq_build_time.py``,
-  ``tools/cli_turns.py``, ``tools/device_profile_torch.py``,
-  ``tools/se_tune_torch.py``, ``tools/pe_tune_torch.py``,
-  ``tools/dp_scaling_torch.py`` and ``tools/thread_dispatch_torch.py``
-  finds no import of ``jax`` or ``walt_tpu`` (at any depth: inside
+  ``tools/hg19_scale_torch.py``, ``tools/uniq_build_time.py`` and
+  ``tools/dp_scaling_torch.py`` finds no import of ``jax`` or ``walt_tpu`` (at any depth: inside
   functions too);
 - a subprocess imports every module of the port, runs its CLI on the CPU
   end to end (SE, then PE) and finds neither ``jax`` nor any ``walt_tpu``
@@ -26,16 +22,9 @@ FORBIDDEN = ("jax", "jaxlib", "walt_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tools", "profile_torch_smoke.py"),
-           os.path.join(ROOT, "tools", "stage_kernel_diag.py"),
            os.path.join(ROOT, "tools", "hg19_scale_torch.py"),
            os.path.join(ROOT, "tools", "uniq_build_time.py"),
-           os.path.join(ROOT, "tools", "cli_turns.py"),
-           os.path.join(ROOT, "tools", "device_profile_torch.py"),
-           os.path.join(ROOT, "tools", "se_tune_torch.py"),
-           os.path.join(ROOT, "tools", "pe_tune_torch.py"),
-           os.path.join(ROOT, "tools", "dp_scaling_torch.py"),
-           os.path.join(ROOT, "tools", "thread_dispatch_torch.py")]
+           os.path.join(ROOT, "tools", "dp_scaling_torch.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "walt_tpu_torch")):
         out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return out

@@ -1,32 +1,32 @@
-"""The port's tuning knobs against walt_tpu's, and its memory ladder under
-``WALTX_HBM_GB``.
+"""The port's device shapes against walt_tpu's knobs, and its memory ladder
+under ``WALTX_HBM_GB``.
 
-- The same environment gives ``JaxBackend`` and ``TorchBackend(device="cpu")``
-  the same ``chunk``, ``_wl1``, ``pe_verify_slab``, ``pe_wl``,
-  ``pe_flat_factor`` and ``_hbm_budget()``, after construction and after
-  ``reset_adaptive()`` re-reads a changed environment; unset, they are
-  walt_tpu's defaults.
-- Under ``WALTX_WL1=1.25``, ``WALTX_CHUNK=512`` and ``verify_slab_t1=16``
+- walt_tpu's ``JaxBackend`` reads its shapes (``chunk``, ``_wl1``,
+  ``pe_verify_slab``, ``pe_wl``, ``pe_flat_factor``) from ``WALTX_CHUNK``,
+  ``WALTX_WL1``, ``WALTX_PE_SLAB``, ``WALTX_PE_WL`` and ``WALTX_PE_FLAT``;
+  ``TorchBackend(device="cpu")`` reads none of them: its shapes are its
+  arguments and the constants of ``ops/pipeline`` and ``ops/pe_map``, after
+  construction and after ``reset_adaptive()``, which resets only the
+  adaptive state (``_seed0_rate``, ``_wl1``).  Both read ``WALTX_HBM_GB``
+  alike.
+- With walt_tpu's shapes set through its environment and the port's on the
+  instance: at SE ``verify_slab_t1`` 16 / wl1 1.25 and 12 / 2.0 (chunk 512)
   ``map_single_end`` equals walt_tpu's where neither side fell back, with
-  equal fallback bits; under the PE shapes (8, 2, 8) and (24, 3, 12) at
-  ``-b 12`` (``exact_b`` off at slab 8, on at slab 24) ``map_mate_slabs``
-  equals walt_tpu's; the CLI's MR and ``.mapstats`` under these knobs are
-  byte-identical to ``walt_tpu.cli --backend numpy``.
+  equal fallback bits; at the PE shapes (8, 2, 8), (12, 2.5, 10), the
+  defaults (16, 3, 12) and (24, 3, 12) at ``-b 12`` (``exact_b`` on at
+  slab 24 only) ``map_mate_slabs`` equals walt_tpu's; the drivers' MR and
+  ``.mapstats`` on a backend with these shapes are byte-identical to
+  ``walt_tpu.cli --backend numpy``.
 - Three of ``tests/test_oom.py``'s ladder tests, ported: a table without
   its uniq index, the key16 rung chosen by a ``WALTX_HBM_GB`` budget, and a
   budget nothing fits (``HbmBudgetError``, then the exact host path).
-- ``tools/se_tune_torch.py`` and ``tools/pe_tune_torch.py`` refuse to run
-  without a card unless asked for the CPU, and rehearse on the CPU: they
-  print the report's keys, no measured number, and write no report.
 
-Knobs are set only through ``monkeypatch``: ``WALTX_CHUNK`` wins over an
-explicit argument, so a variable left behind would change later tests.
+Variables are set only through ``monkeypatch``: walt_tpu's ``WALTX_CHUNK``
+wins over an explicit argument, so a variable left behind would change
+later tests.
 """
 
-import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -38,11 +38,15 @@ from walt_tpu_torch.host.fastq import FgetsLines, load_batch
 from walt_tpu_torch.index import io_walt
 from walt_tpu_torch.ops import device_index as tdi
 from walt_tpu_torch.ops import pe_map as tpe
+from walt_tpu_torch.ops import pipeline as tpipe
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATTERN = get_pattern("3")
-KNOBS = ("WALTX_CHUNK", "WALTX_WL1", "WALTX_PE_SLAB", "WALTX_PE_WL",
-         "WALTX_PE_FLAT", "WALTX_HBM_GB", "WALTX_KEY_RUNG")
+#: walt_tpu's shape variables, in the order of :func:`_shapes`
+SHAPE_KNOBS = ("WALTX_CHUNK", "WALTX_WL1", "WALTX_PE_SLAB", "WALTX_PE_WL",
+               "WALTX_PE_FLAT")
+KNOBS = SHAPE_KNOBS + ("WALTX_HBM_GB", "WALTX_KEY_RUNG")
+#: the shapes of :func:`_shapes` on both sides with no variable set
+DEFAULTS = (131072, 1.5, 16, 3, 12)
 
 
 @pytest.fixture
@@ -53,9 +57,8 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
-def _knobs(b):
-    return (b.chunk, b._wl1, b.pe_verify_slab, b.pe_wl, b.pe_flat_factor,
-            b._hbm_budget())
+def _shapes(b):
+    return (b.chunk, b._wl1, b.pe_verify_slab, b.pe_wl, b.pe_flat_factor)
 
 
 @pytest.mark.parametrize("env", [
@@ -71,24 +74,40 @@ def test_knobs_match_walt_tpu(clean_env, env):
     for k, v in env.items():
         clean_env.setenv(k, v)
     jb, tb = JaxBackend(), TorchBackend(device="cpu")
-    assert _knobs(tb) == _knobs(jb)
+    # walt_tpu follows each shape variable; the port stays at its constants
+    assert _shapes(jb) == tuple(float(env[k]) if k in env else d
+                                for k, d in zip(SHAPE_KNOBS, DEFAULTS))
+    assert _shapes(tb) == DEFAULTS
+    assert tb._hbm_budget() == jb._hbm_budget()
     assert tb.verify_slab_t1 == jb.verify_slab_t1 == 8
-    if not env:
-        assert _knobs(tb) == (131072, 1.5, 16, 3, 12, None)
-    # the environment wins over an explicit chunk, on both sides
-    assert (TorchBackend(device="cpu", chunk=256).chunk
-            == JaxBackend(chunk=256).chunk
-            == (int(env["WALTX_CHUNK"]) if "WALTX_CHUNK" in env else 256))
-    # reset_adaptive re-reads the shape knobs (the CLI calls it per file);
-    # chunk stays as constructed
+    assert tb._hbm_budget() == (None if "WALTX_HBM_GB" not in env else
+                                int(float(env["WALTX_HBM_GB"]) * (1 << 30)))
+    # walt_tpu's environment wins over an explicit chunk; the port takes
+    # the argument
+    assert JaxBackend(chunk=256).chunk == int(env.get("WALTX_CHUNK", 256))
+    assert TorchBackend(device="cpu", chunk=256).chunk == 256
+    # reset_adaptive (the CLI calls it per file): walt_tpu reads its shape
+    # variables again, the port's shapes stay as they are
     for k in KNOBS:
         clean_env.delenv(k, raising=False)
     clean_env.setenv("WALTX_WL1", "2.5")
     clean_env.setenv("WALTX_PE_SLAB", "12")
     jb.reset_adaptive()
     tb.reset_adaptive()
-    assert _knobs(tb) == _knobs(jb)
-    assert (tb._wl1, tb.pe_verify_slab, tb.pe_wl) == (2.5, 12, 3)
+    assert (jb._wl1, jb.pe_verify_slab, jb.pe_wl) == (2.5, 12, 3)
+    assert _shapes(tb) == DEFAULTS
+
+
+def test_reset_adaptive_resets_only_the_adaptive_state(clean_env):
+    """``reset_adaptive`` restores the seed-0 rate and a widened tier-1
+    worklist, and leaves the chunk and the PE mate step's shapes alone."""
+    tb = TorchBackend(device="cpu", chunk=512)
+    tb._seed0_rate = 0.3
+    tb._wl1 = tpipe.WL_FACTOR  # as a dense-candidate batch widens it
+    tb.pe_verify_slab, tb.pe_wl, tb.pe_flat_factor = 8, 2, 8
+    tb.reset_adaptive()
+    assert tb._seed0_rate is None and tb._wl1 == tpipe.WL1
+    assert _shapes(tb) == (512, tpipe.WL1, 8, 2, 8)
 
 
 @pytest.fixture(scope="module")
@@ -131,17 +150,22 @@ def _load(fastq):
         lines.close()
 
 
-def test_map_single_end_matches_walt_tpu_under_knobs(clean_env, rep):
+@pytest.mark.parametrize("slab,wl1", [(16, 1.25), (12, 2.0)],
+                         ids=lambda v: str(v))
+def test_map_single_end_matches_walt_tpu_under_knobs(clean_env, rep, slab,
+                                                     wl1):
     from walt_tpu.core.jax_backend import JaxBackend
     from walt_tpu_torch.synth import sample_reads
 
-    clean_env.setenv("WALTX_WL1", "1.25")
+    clean_env.setenv("WALTX_WL1", str(wl1))
     clean_env.setenv("WALTX_CHUNK", "512")
     tables = rep["tables"][0]
     codes, lens, _ = sample_reads(rep["genome"], 1500, 100, seed=43)
-    tb = TorchBackend(device="cpu", small_chunk=64, verify_slab_t1=16)
-    jb = JaxBackend(small_chunk=64, verify_slab_t1=16)
-    assert tb.chunk == jb.chunk == 512 and tb._wl1 == 1.25
+    tb = TorchBackend(device="cpu", chunk=512, small_chunk=64,
+                      verify_slab_t1=slab)
+    tb._wl1 = wl1
+    jb = JaxBackend(small_chunk=64, verify_slab_t1=slab)
+    assert tb.chunk == jb.chunk == 512 and tb._wl1 == jb._wl1 == wl1
     c0 = perf.counters()
     got = tb.map_single_end(codes, lens, tables, 5000, 6, PATTERN)
     c1 = perf.counters()
@@ -155,13 +179,14 @@ def test_map_single_end_matches_walt_tpu_under_knobs(clean_env, rep):
     assert tuple(c1.get(k, 0) - c0.get(k, 0) for k in (
         "backend.reads", "backend.fallback_reads")) == (jb.total_reads,
                                                         jb.fallback_reads)
-    # the slab knob reached the device passes: slab 8 keeps fewer reads
+    # the slab reached the device passes: slab 8 keeps fewer reads
     default = TorchBackend(device="cpu", small_chunk=64)
     fb8 = default.map_single_end(codes, lens, tables, 5000, 6, PATTERN)[4]
     assert fb8.sum() > got[4].sum()
 
 
-@pytest.mark.parametrize("shape", [(8, 2, 8), (24, 3, 12)],
+@pytest.mark.parametrize("shape", [(8, 2, 8), (24, 3, 12), (12, 2.5, 10),
+                                   (16, 3, 12)],
                          ids=lambda s: "/".join(map(str, s)))
 @pytest.mark.parametrize("mate", [1, 2])
 def test_map_mate_slabs_matches_walt_tpu_under_knobs(clean_env, rep, shape,
@@ -178,10 +203,12 @@ def test_map_mate_slabs_matches_walt_tpu_under_knobs(clean_env, rep, shape,
                      kw["exact_b"])) or real(*a, **kw)))
     codes, lens = _load(rep["pe"][mate - 1])
     args = (codes, lens, rep["tables"][mate - 1], mate == 2, 12, 6, PATTERN)
-    streams, fb = TorchBackend(device="cpu", chunk=64,
-                               small_chunk=32).map_mate_slabs(*args)
+    tb = TorchBackend(device="cpu", chunk=64, small_chunk=32)
+    assert _shapes(tb)[2:] == DEFAULTS[2:]
+    tb.pe_verify_slab, tb.pe_wl, tb.pe_flat_factor = shape
+    streams, fb = tb.map_mate_slabs(*args)
     jstreams, jfb = JaxBackend(chunk=64, small_chunk=32).map_mate_slabs(*args)
-    # every chunk's step took the knobs, and -b 12 takes the exact_b path
+    # every chunk's step took the shapes, and -b 12 takes the exact_b path
     # at slab 24 only
     assert seen and set(seen) == {(*shape, 12 < shape[0])}
     np.testing.assert_array_equal(fb, jfb)
@@ -197,27 +224,39 @@ def _read_all(out):
 
 
 @pytest.mark.parametrize("case", [
-    ("se", {"WALTX_WL1": "1.25", "WALTX_CHUNK": "512"}, []),
-    ("se", {"WALTX_WL1": "1.25", "WALTX_CHUNK": "512"}, ["-b", "12"]),
-    ("pe", {"WALTX_PE_SLAB": "8", "WALTX_PE_WL": "2", "WALTX_PE_FLAT": "8",
-            "WALTX_CHUNK": "512"}, ["-b", "12"]),
-    ("pe", {"WALTX_PE_SLAB": "24", "WALTX_PE_WL": "3",
-            "WALTX_PE_FLAT": "12"}, ["-b", "12"]),
+    ("se", dict(chunk=512), dict(_wl1=1.25), []),
+    ("se", dict(chunk=512), dict(_wl1=1.25), ["-b", "12"]),
+    ("pe", dict(chunk=512), dict(pe_verify_slab=8, pe_wl=2,
+                                 pe_flat_factor=8), ["-b", "12"]),
+    ("pe", {}, dict(pe_verify_slab=24, pe_wl=3, pe_flat_factor=12),
+     ["-b", "12"]),
 ], ids=["se", "se-b12", "pe-8/2/8-b12", "pe-24/3/12-b12"])
 def test_cli_under_knobs_matches_numpy(clean_env, tmp_path, rep, case):
+    """The drivers the CLI runs, in process on a backend with the shapes
+    set (the CLI's ``reset_adaptive`` would restore ``_wl1``), against
+    ``walt_tpu.cli --backend numpy`` with the same flags."""
     from walt_tpu.cli import main_map
-    from walt_tpu_torch import cli as tcli
+    from walt_tpu_torch.core.paired_end import process_paired_end
+    from walt_tpu_torch.core.single_end import process_single_end
 
-    mode, env, flags = case
+    mode, kw, shapes, flags = case
     reads = (["-r", rep["se"]] if mode == "se"
              else ["-1", rep["pe"][0], "-2", rep["pe"][1]])
     ref, out = str(tmp_path / "numpy.mr"), str(tmp_path / "torch.mr")
     main_map(["-i", rep["index"], *reads, "-o", ref, "--backend", "numpy",
               *flags])
-    for k, v in env.items():
-        clean_env.setenv(k, v)
-    assert tcli.main(["-i", rep["index"], *reads, "-o", out, "--device",
-                      "cpu", *flags]) == 0
+    backend = TorchBackend(device="cpu", **kw)
+    for name, value in shapes.items():
+        setattr(backend, name, value)
+    b = int(flags[1]) if flags else 5000
+    for f in (out, out + ".mapstats"):
+        open(f, "w").close()
+    if mode == "se":
+        process_single_end(rep["index"], rep["se"], out, b=b,
+                           backend=backend)
+    else:
+        process_paired_end(rep["index"], *rep["pe"], out, b=b,
+                           backend=backend)
     assert _read_all(out) == _read_all(ref)
 
 
@@ -360,70 +399,3 @@ def test_chip_smoke_knobs_phase_rehearses_on_cpu(clean_env, tmp_path,
     assert dict(os.environ) == before
     for mode in ("se", "pe"):
         assert os.path.getsize(work / f"knobs_{mode}.mr") > 0
-
-
-# ---- the tuning tools: no card, and their CPU rehearsals -------------------
-
-@pytest.mark.parametrize("tool", ["se", "pe"])
-def test_tune_tool_refuses_without_card(tmp_path, tool):
-    """The default ``--device cuda`` exits non-zero without a card, before
-    it builds any data, and writes no report."""
-    import torch
-
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    out = tmp_path / "tune.json"
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", f"{tool}_tune_torch.py"),
-         "--out", str(out)],
-        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT),
-        capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0
-    assert "no CUDA device" in proc.stderr
-    assert "[chip_smoke] data" not in proc.stderr + proc.stdout
-    assert not out.exists() and not proc.stdout
-
-
-@pytest.mark.parametrize("tool", ["se", "pe"])
-def test_tune_tool_rehearses_on_cpu(clean_env, tmp_path, my_index, se_fastq,
-                                    pe_fastq, tool):
-    name = f"{tool}_tune_torch.py"
-    report = os.path.join(ROOT, f"{tool.upper()}_TUNE_TORCH.json")
-    before = (os.stat(report).st_mtime_ns if os.path.exists(report)
-              else None)
-    out = tmp_path / "tune.json"
-    reads = [se_fastq] if tool == "se" else list(pe_fastq)
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", name), my_index, *reads,
-         "100", "--device", "cpu", "--out", str(out)],
-        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT),
-        capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    rep = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert set(rep) == {"results", "best", "card"}
-    assert rep["card"].startswith("cpu rehearsal")
-    assert rep["best"] is None
-    rows = rep["results"]
-    if tool == "se":
-        assert [(r["slab"], r["wl"]) for r in rows] == [
-            (8, 1.5), (12, 2.0), (16, 2.5), (8, 1.25)]
-        timed = ("reads_per_s", "seconds", "seconds_all", "fallback_pct",
-                 "fallback_pct_all", "wl1_end", "launches",
-                 "working_set_gib")
-        keys = {"slab", "wl", "rungs", "bytes_identical", *timed}
-    else:
-        assert [(r["slab"], r["wl"], r["flat"]) for r in rows] == [
-            (8, 2.0, 8), (8, 1.5, 8), (16, 2.5, 10), (16, 3.0, 12),
-            (24, 3.0, 12)]
-        timed = ("pairs_per_s", "seconds", "warm_s", "fallback_pct",
-                 "launches", "working_set_gib")
-        keys = {"slab", "wl", "flat", "rungs", "bytes_identical", *timed}
-    for r in rows:
-        assert set(r) == keys
-        assert all(r[k] is None for k in timed)
-        # exact output under every setting, on the CPU path too
-        assert r["bytes_identical"] is True
-        assert r["rungs"]
-    assert not out.exists()
-    assert (os.stat(report).st_mtime_ns if os.path.exists(report)
-            else None) == before

@@ -26,6 +26,8 @@ fallback bits included:
   meshes of the same 8 devices.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,14 +106,27 @@ def _i32(a):
     return packing.from_np(np.ascontiguousarray(a))
 
 
+#: the tp splits a shard is held to walt_tpu's or the host layout under:
+#: walt_tpu's equal bucket-key ranges and the runtime's entry-balanced
+#: ranges
+SPLITS = {"equal": tsh.bucket_range_bounds, "balanced": tsh.balanced_bounds}
+
+
+@contextlib.contextmanager
+def _split(split):
+    """The port's tp split replaced by ``split`` (:data:`SPLITS`)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tsh, "balanced_bounds", SPLITS[split])
+        yield
+
+
 @pytest.mark.parametrize("accel", ["uniq", "key16"])
 @pytest.mark.parametrize("T", [2, 4])
 def test_shard_device_table_matches_jax(synth, accel, T):
     dt = synth[0]["CT00"]
     want = jsh.shard_device_table(dt, T, accel=accel)
-    got = tsh.shard_device_table(
-        dt, T, accel=accel,
-        bucket_bounds=tsh.bucket_range_bounds(dt.counter, T)[0])
+    with _split("equal"):
+        got = tsh.shard_device_table(dt, T, accel=accel)
     for f in ("key_base", "counter", "index", "key_words", "uniq_counter",
               "uniq_words", "uniq_off", "pseq", "start_index"):
         a, b = getattr(got, f), getattr(want, f)
@@ -129,19 +144,14 @@ def test_shard_device_table_matches_jax(synth, accel, T):
                                   want.bucket_flagged)
 
 
-#: the tp=2 splits a placement is held to the host layout under: walt_tpu's
-#: equal bucket-key ranges and the runtime's entry-balanced ranges
-SPLITS = {"equal": tsh.bucket_range_bounds, "balanced": tsh.balanced_bounds}
-
-
 @pytest.mark.parametrize("split", list(SPLITS))
 @pytest.mark.parametrize("accel", ["uniq", "key16"])
 def test_shard_and_place_is_the_host_layout(synth, tmesh, accel, split):
     dt = synth[0]["CT01"]
     kb = SPLITS[split](dt.counter, 2)[0]
-    st = tsh.shard_device_table(dt, 2, accel=accel, bucket_bounds=kb)
-    grid, ubits = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel,
-                                      bucket_bounds=kb)
+    with _split(split):
+        st = tsh.shard_device_table(dt, 2, accel=accel)
+        grid, ubits = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel)
     assert ubits == st.uniq_bits
     assert len(grid) == 4 and all(len(r) == 2 for r in grid)
     for t in range(2):
@@ -312,10 +322,9 @@ def _placed(dts, convs, mesh8, tmesh, accel, equal=False):
         dt = dts[conv]
         dev, ub = jsh.shard_and_place(dt, mesh8, accel=accel,
                                       free_input=False)
-        kb = (tsh.bucket_range_bounds(dt.counter, tmesh.shape["tp"])[0]
-              if equal else None)
-        grid, ub_t = tsh.shard_and_place(dt, tmesh, PATTERN, accel=accel,
-                                         bucket_bounds=kb)
+        with _split("equal" if equal else "balanced"):
+            grid, ub_t = tsh.shard_and_place(dt, tmesh, PATTERN,
+                                             accel=accel)
         assert ub_t == ub
         jt.append(dev)
         tt.append(grid)

@@ -3,8 +3,9 @@ profiler, on the CPU at a toy size.
 
 - Outputs with a recording ``stages`` are bit-identical to ``stages=None``:
   the SE step on the uniq, key16, u32 word-0 and ``exact_b`` rungs, the PE
-  mate step (``emit_wl``) and a routed tp=2 shard; also with a
-  ``CudaStageTimer`` whose CUDA events are stand-ins.
+  mate step (``emit_wl``) on the uniq, key16 and u32 word-0 rungs, and a
+  routed tp=2 shard on the uniq and key16 accels, as slabs and as the
+  ``emit_wl`` stream.
 - With ``stages=None`` no CUDA event, profiler range or host sync is made.
 - The stage names and their order per mode.
 - At the ``keys``, ``search`` and ``membership`` marks, walt_tpu's
@@ -17,23 +18,13 @@ profiler, on the CPU at a toy size.
   after the index gather, the chromosome search and
   ``ok_head``/``ok_tail``, which the port's fused verify kernel does), so
   no port mark sees walt_tpu's worklist checksum.
-- ``CudaStageTimer.device_split`` on a trace whose device records are made
-  up around a real CPU profile: a kernel counts in the stage whose range
-  holds its launch, not the one its device time overlaps; the stages add
-  up to the pass; work after a pass's last mark counts in no stage, and
-  ``chip_smoke.check_stage_split`` refuses it.
-- ``tools/device_profile_torch.py --device cpu`` prints the report's keys
-  and stage names and writes no file.
 - ``chip_smoke.device_profile`` (phase 3) on made-up traces: it counts
   only device events launched in its window (not a warm-up call's record
   or the profiler's step range) and profiles a window that lost a launch's
   device record again, at most ``PROFILE_ATTEMPTS`` times.
 """
 
-import json
 import os
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +41,6 @@ from walt_tpu_torch.ops import pipeline as tpipe
 from walt_tpu_torch.ops import stages as st
 from walt_tpu_torch.parallel import sharded as tsh
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATTERN = get_pattern("3")
 ORDER = ("pseq", "counter", "index", "key_words", "start_index",
          "bucket_flagged")
@@ -135,31 +125,8 @@ def _equal(a, b):
             assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-class _FakeEvent:
-    """Stands in for torch.cuda.Event on the CPU."""
-
-    def __init__(self, enable_timing=False):
-        assert enable_timing
-        self.recorded = False
-
-    def record(self, stream=None):
-        self.recorded = True
-
-    def elapsed_time(self, other):
-        assert self.recorded and other.recorded
-        return 0.0
-
-
-@pytest.fixture
-def fake_events(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-
-
 @pytest.mark.parametrize("rung", ["uniq", "key16", "word0", "exact_b"])
-def test_se_step_with_stages_is_bit_identical(host_tables, fake_events,
-                                              rung):
+def test_se_step_with_stages_is_bit_identical(host_tables, rung):
     tabs = [_torch_table(g, ht, rung) for g, ht in host_tables]
     preads, lens = _reads(host_tables[0][0], _mixed_lengths(96, 3), seed=9)
     exact_b = rung == "exact_b"
@@ -168,18 +135,12 @@ def test_se_step_with_stages_is_bit_identical(host_tables, fake_events,
     _equal((_se_step(tabs, preads, lens, exact_b, log),), (want,))
     assert log.names() == SE_NAMES
     assert torch.equal(log.marks[-1].live["packed"], want)
-    timer = st.CudaStageTimer()
-    _equal((_se_step(tabs, preads, lens, exact_b, timer),), (want,))
-    assert timer.names() == SE_NAMES
-    # an event at each mark and at each pass's begin and end
-    assert len(timer._bounds) == len(SE_NAMES) + 4
-    assert set(timer.stream_ms()) == set(SE_NAMES) | {(0, "strand"),
-                                                      (1, "strand")}
     assert int((want[:, 1] > 0).sum()) > 0  # reads mapped
 
 
-def test_pe_step_with_stages_is_bit_identical(host_tables, fake_events):
-    tabs = [_torch_table(g, ht, "uniq") for g, ht in host_tables]
+@pytest.mark.parametrize("rung", ["uniq", "key16", "word0"])
+def test_pe_step_with_stages_is_bit_identical(host_tables, rung):
+    tabs = [_torch_table(g, ht, rung) for g, ht in host_tables]
     preads, lens = _reads(host_tables[0][0], [100] * 64, seed=21)
     want = _pe_step(tabs, preads, lens, None)
     log = st.StageLog()
@@ -188,29 +149,41 @@ def test_pe_step_with_stages_is_bit_identical(host_tables, fake_events):
     # under emit_wl the compact mark carries the worklist stream the step
     # packs into the flat rows
     assert set(log.marks[5].live) == {"wl", "cand_cnt", "fallback"}
-    timer = st.CudaStageTimer()
-    _equal(_pe_step(tabs, preads, lens, timer), want)
-    assert timer.names() == PE_NAMES
     assert int((want[0] & 0xFFFF).sum()) > 0  # candidates were found
 
 
 @pytest.fixture(scope="module")
-def shards(host_tables):
-    """tp=2 host shards of CT00 (the layout test_torch_sharded uses)."""
+def split(host_tables):
+    """tp=2 host shards of CT00 (the layout test_torch_sharded uses), by
+    accel: "uniq" (word-0 runs) and "key16" (16-bit prefix keys)."""
     g, ht = host_tables[0]
     dt = tdi.build_device_table(g, ht, PATTERN, with_key_words=True)
-    return tsh.shard_device_table(dt, 2, accel="uniq")
+    return {accel: tsh.shard_device_table(dt, 2, accel=accel)
+            for accel in ("uniq", "key16")}
+
+
+@pytest.fixture(scope="module")
+def shards(split):
+    return split["uniq"]
 
 
 def _shard_inputs(stt, s):
+    """One shard's table and uniq arguments; a key16 shard passes its
+    prefix keys and no uniq runs."""
+    key16 = stt.key_words.dtype == np.uint16
     table = [stt.pseq, stt.counter[s], stt.index[s],
-             np.zeros((1, 1), np.uint32), stt.start_index,
-             stt.bucket_flagged[s]]
-    uniq = [stt.uniq_words[s], stt.uniq_off[s], stt.uniq_counter[s]]
+             stt.key_words[s] if key16 else np.zeros((1, 1), np.uint32),
+             stt.start_index, stt.bucket_flagged[s]]
+    uniq = ([None] * 3 if key16 else
+            [stt.uniq_words[s], stt.uniq_off[s], stt.uniq_counter[s]])
     return table, uniq
 
 
 def _t(a):
+    if a is None:
+        return None
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16))
     return torch.from_numpy(a) if a.dtype == np.uint8 else \
         packing.from_np(np.ascontiguousarray(a))
 
@@ -228,14 +201,15 @@ def _routed(stt, s, preads, lens, stages, emit_wl=False):
             stages=stages)
 
 
+@pytest.mark.parametrize("accel", ["uniq", "key16"])
 @pytest.mark.parametrize("emit_wl", [False, True])
-def test_routed_shard_with_stages_is_bit_identical(host_tables, shards,
-                                                   emit_wl):
+def test_routed_shard_with_stages_is_bit_identical(host_tables, split,
+                                                   emit_wl, accel):
     preads, lens = _reads(host_tables[0][0], [100] * 96, seed=4)
     for s in range(2):
-        want = _routed(shards, s, preads, lens, None, emit_wl)
+        want = _routed(split[accel], s, preads, lens, None, emit_wl)
         log = st.StageLog()
-        _equal(_routed(shards, s, preads, lens, log, emit_wl), want)
+        _equal(_routed(split[accel], s, preads, lens, log, emit_wl), want)
         assert log.names() == [(0, n) for n in st.STRAND_STAGES]
 
 
@@ -358,127 +332,6 @@ def test_routed_boundaries_give_walt_tpu_stage_checksums(host_tables,
                 tp_route=2, stage_out=stage)
             assert _checksum(stage, live[stage], True) == int(want), \
                 (s, stage)
-
-
-def _drive(timer, tail: bool):
-    """Two strand passes and a fold through ``timer``'s boundaries, with a
-    stand-in launch (a named record_function range) in every stage, and
-    with ``tail`` one more after pass 0's last mark."""
-    def launch(name):
-        with torch.profiler.record_function(f"launch:{name}"):
-            pass
-
-    for t in (0, 1):
-        timer.begin(t)
-        for s in st.STRAND_STAGES:
-            launch(f"{t}.{s}")
-            timer.mark(s)
-        if tail and t == 0:
-            launch("tail")
-        timer.end()
-    launch("fold")
-    timer.mark("fold")
-
-
-def _with_device_records(events, late_us: float):
-    """The trace plus a kernel for each stand-in launch: its host call at
-    the launch's time, its device time ``late_us`` later."""
-    out = list(events)
-    launches = [e for e in events if e.get("cat") == "user_annotation"
-                and e["name"].startswith("launch:")]
-    for corr, e in enumerate(launches, 1):
-        ts = float(e["ts"])
-        out.append(dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel",
-                        ts=ts, dur=1.0, args=dict(correlation=corr)))
-        name = e["name"][len("launch:"):]
-        if name.endswith(".verify"):
-            name = "void verify_stage_kernel<7>(waltx::StageArgs)"
-        out.append(dict(ph="X", cat="kernel", name=name, ts=ts + late_us,
-                        dur=2.0, args=dict(correlation=corr)))
-    return out
-
-
-@pytest.mark.parametrize("tail", [False, True])
-def test_device_split_attributes_by_launch(fake_events, tail):
-    from torch.profiler import ProfilerActivity, profile
-
-    timer = st.CudaStageTimer()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _drive(timer, tail)
-    path = os.path.join(ROOT, "build", f"stage_trace_test_{os.getpid()}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.unlink(path)
-    # every kernel runs long after its launch, inside later stages' ranges
-    # on the host timeline
-    split = timer.device_split(_with_device_records(events, late_us=5e4))
-    for t in (0, 1):
-        for s in st.STRAND_STAGES:
-            rec = split[(t, s)]
-            assert rec["launches"] == 1 and set(rec["names"]) == {
-                "void verify_stage_kernel<7>(waltx::StageArgs)"
-                if s == "verify" else f"{t}.{s}"}
-            assert rec["busy_ms"] == pytest.approx(0.002)
-    assert set(split[(None, "fold")]["names"]) == {"fold"}
-    assert split[(0, "strand")]["launches"] == 6 + tail
-    assert split[(1, "strand")]["launches"] == 6
-    if tail:
-        assert split[(None, None)]["launches"] == 1
-        with pytest.raises(AssertionError, match="outside any stage"):
-            chip_smoke.check_stage_split(timer, split, 2, "fold")
-    else:
-        assert (None, None) not in split
-        chip_smoke.check_stage_split(timer, split, 2, "fold")
-    assert st.unmatched_device_events(
-        _with_device_records(events, 5e4)) == 0
-
-
-def test_timer_refuses_marks_outside_its_order(fake_events):
-    timer = st.CudaStageTimer()
-    with pytest.raises(RuntimeError, match="before any strand pass"):
-        timer.mark("fold")
-    timer.begin(0)
-    with pytest.raises(RuntimeError, match="already open"):
-        timer.begin(1)
-    timer.end()
-    with pytest.raises(RuntimeError, match="no strand pass"):
-        timer.end()
-
-
-def test_tool_rehearses_on_cpu(tmp_path, my_index, se_fastq):
-    out = tmp_path / "devprof.json"
-    root_report = os.path.join(ROOT, "DEVPROF_TORCH.json")
-    before = os.stat(root_report).st_mtime_ns \
-        if os.path.exists(root_report) else None
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("WALTX_PROF")}
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", "device_profile_torch.py"),
-         my_index, se_fastq, "256", "--device", "cpu", "--out", str(out)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    rep = json.loads(proc.stdout)
-    for k in ("chunk", "W", "search_bits", "uniq_bits", "full_mask",
-              "device", "seconds", "us_per_read_full_se", "stage_ms",
-              "stage_busy_ms", "stage_launches", "stage_idle_share"):
-        assert k in rep, k
-    assert rep["chunk"] == 256 and rep["W"] == 5  # 80 bp reads
-    assert set(rep["seconds"]) == {"rtt", "strand", "full_se",
-                                   "full_se_seed0"}
-    assert rep["us_per_read_full_se"] is None
-    want = [f"CT0{t}.{s}" for t in (0, 1) for s in st.STRAND_STAGES]
-    totals = ["CT00.strand", "CT01.strand"]
-    for mode, step in (("se", "fold"), ("pe", "flat")):
-        assert list(rep["stage_ms"][mode]) == want + [step] + totals
-        assert list(rep["stage_launches"][mode]) == (want + [step] + totals
-                                                     + ["unstaged"])
-        assert not any(rep["stage_busy_ms"][mode].values())
-    assert rep["device"].startswith("cpu rehearsal")
-    assert not out.exists()
-    assert (os.stat(root_report).st_mtime_ns
-            if os.path.exists(root_report) else None) == before
 
 
 def _window(reps, lose=()):

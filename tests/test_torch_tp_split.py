@@ -7,7 +7,7 @@ through ``TorchBackend(mesh=...)`` on a genome of human base composition
 (a converted table then holds no C, so walt_tpu's equal bucket-key ranges
 put about half of a C->T table on the T range) keeps every shard's own
 fallbacks near the one-card backend's, where walt_tpu's equal ranges
-(pinned through ``shard_and_place``'s ``bucket_bounds``) spill the heavy
+(``bucket_range_bounds`` standing in for the split) spill the heavy
 shards' route capacity; the output bytes equal the exact host path's and
 the one-card backend's under both splits.
 """
@@ -81,18 +81,11 @@ def test_balanced_bounds(name, tp):
         assert np.abs(np.diff(eb) / n - 0.25).max() < 0.01
 
 
-def test_given_bucket_bounds_are_checked():
-    c = _big_bucket()
-    nb = c.shape[0] - 1
-    kb, eb = sharded._shard_bounds(c, 2, "test", [0, 10, nb])
-    assert kb.tolist() == [0, 10, nb] and eb.tolist() == [0, int(c[10]),
-                                                          int(c[-1])]
-    for tp, bad in ((2, [0, nb]), (2, [0, 0, nb]), (2, [0, 10, nb - 1]),
-                    (2, [1, 10, nb]), (3, [0, 20, 10, nb])):
-        with pytest.raises(ValueError, match="bucket bounds"):
-            sharded._shard_bounds(c, tp, "test", bad)
+def test_balanced_bounds_refuse_more_shards_than_buckets():
     with pytest.raises(ValueError, match="do not split"):
         sharded.balanced_bounds(_counter(np.ones(4, np.int64)), 8)
+    kb, _ = sharded.balanced_bounds(_counter(np.ones(4, np.int64)), 4)
+    assert kb.tolist() == [0, 1, 2, 3, 4]
 
 
 # ---- the mechanism on a virtual tp = 4 mesh --------------------------------
@@ -173,13 +166,8 @@ def test_balanced_split_keeps_the_shards_on_the_device(tmp_path, human_pe,
 
     # walt_tpu's equal bucket-key ranges, below the backend: the heavy
     # shards spill their route capacity, past the slack
-    real = sharded.shard_and_place
-
-    def equal_ranges(dt, mesh, *args, **kw):
-        kb = sharded.bucket_range_bounds(dt.counter, mesh.shape["tp"])[0]
-        return real(dt, mesh, *args, bucket_bounds=kb, **kw)
-
-    monkeypatch.setattr(sharded, "shard_and_place", equal_ranges)
+    monkeypatch.setattr(sharded, "balanced_bounds",
+                        sharded.bucket_range_bounds)
     got_eq, ce = _run_pe(str(tmp_path / "mesh_eq.mr"), human_pe,
                          mesh_backend())
     assert got_eq == want

@@ -107,10 +107,11 @@ class TorchBackend:
                  cand_slab: int = pipeline.CAND_SLAB,
                  verify_slab_t1: int = pipeline.VERIFY_SLAB_T1,
                  mesh=None, tp: int | None = None, tp_accel: str = "uniq"):
-        """``chunk``: reads per device chunk; ``WALTX_CHUNK``, when set,
-        wins over the argument (as for walt_tpu).  ``verify_slab_t1``: the
-        SE tier-1 verify slab (phases A and B, and the first pass of
-        ``map_strand_slabs``).
+        """``chunk``: reads per device chunk.  ``verify_slab_t1``: the SE
+        tier-1 verify slab (phases A and B, and the first pass of
+        ``map_strand_slabs``).  The PE mate step's shapes are
+        ``pe_map``'s constants (:attr:`pe_verify_slab`, :attr:`pe_wl`,
+        :attr:`pe_flat_factor`).
 
         ``mesh``: a :class:`walt_tpu_torch.parallel.Mesh`, the string
         "auto" (every visible CUDA device when ``device`` is CUDA and there
@@ -142,11 +143,15 @@ class TorchBackend:
         self.mesh = mesh
         self.tp_accel = tp_accel
         self._dp = mesh.shape["dp"] if mesh is not None else 1
-        self.chunk = int(os.environ.get("WALTX_CHUNK", chunk))
+        self.chunk = chunk
         self.small_chunk = small_chunk
         self.verify_slab = verify_slab
         self.cand_slab = cand_slab
         self.verify_slab_t1 = verify_slab_t1
+        #: the PE mate step's verify slab, worklist and flat slots per read
+        self.pe_verify_slab = pe_map.VERIFY_SLAB
+        self.pe_wl = pe_map.WL_FACTOR
+        self.pe_flat_factor = pe_map.FLAT_FACTOR
         self._tables = {}
         #: table keys whose build already failed the memory budget; the
         #: failure is deterministic, so later batches short-circuit.  Values
@@ -166,24 +171,14 @@ class TorchBackend:
 
     def reset_adaptive(self):
         """Reset the per-workload throughput heuristics (between files, so
-        file N's phase schedule never depends on file N-1's reads), and
-        read the shape knobs again from the environment, with walt_tpu's
-        names and defaults: ``WALTX_WL1`` (SE tier-1 worklist slots per
-        read), ``WALTX_PE_SLAB``, ``WALTX_PE_WL`` and ``WALTX_PE_FLAT`` (the
-        PE mate step's verify slab, worklist and flat slots per read).
-        They change which reads fall back, never the output."""
+        file N's phase schedule never depends on file N-1's reads)."""
         # measured fraction of reads whose best hit resolves at seed 0 with
         # 0 mismatches (the early exit, mapping.cpp:248-263); decides
         # whether a dedicated seed-0 phase pays for itself
         self._seed0_rate = None
         # tier-1 worklist slots per read (the JAX package's tuned value);
         # widened for workloads that spill
-        self._wl1 = float(os.environ.get("WALTX_WL1", pipeline.WL1))
-        self.pe_verify_slab = int(os.environ.get("WALTX_PE_SLAB",
-                                                 pe_map.VERIFY_SLAB))
-        self.pe_wl = float(os.environ.get("WALTX_PE_WL", pe_map.WL_FACTOR))
-        self.pe_flat_factor = int(os.environ.get("WALTX_PE_FLAT",
-                                                 pe_map.FLAT_FACTOR))
+        self._wl1 = pipeline.WL1
 
     # ---- tables ----------------------------------------------------------
     def _device_table(self, genome: Genome, table: HashTable,
@@ -703,7 +698,7 @@ class TorchBackend:
                     devs.append(dev)
                     bits.append(dt.max_bucket_bits)
                     ubits.append(dt.uniq_bits)
-                slab = self.pe_verify_slab or self.verify_slab_t1
+                slab = self.pe_verify_slab
                 spans, results = [], []
                 for a, z, pc, pl in chunks:
                     results.extend(self._to_host(self.mate_step(
@@ -711,8 +706,8 @@ class TorchBackend:
                         pattern_name=pattern.name, ag_wildcard=ag_wildcard,
                         search_bits=tuple(bits), verify_slab=slab,
                         cand_slab=self.cand_slab,
-                        wl_factor=self.pe_wl or self._wl1, exact_b=b < slab,
-                        flat_factor=self.pe_flat_factor or pe_map.FLAT_FACTOR,
+                        wl_factor=self.pe_wl, exact_b=b < slab,
+                        flat_factor=self.pe_flat_factor,
                         uniq_bits=tuple(ubits),
                         full_mask=self._full_mask(lens[a:z], pattern),
                     )))

@@ -31,10 +31,9 @@ from walt_tpu_torch.ops import pipeline
 from walt_tpu_torch.ops.packing import MASK32, to_i32
 from walt_tpu_torch.ops.stages import PE_STEP_STAGE, strand_pass
 
-#: PE tier-1 verify slab, worklist slots per read and flat slots per read:
-#: the defaults of the backend's ``WALTX_PE_SLAB/WL/FLAT``, the JAX
-#: package's (chosen by tools/pe_tune.py on a TPU v5e);
-#: tools/pe_tune_torch.py sweeps them on an NVIDIA card (PERF.md)
+#: PE tier-1 verify slab, worklist slots per read and flat slots per read
+#: (the backend's ``pe_verify_slab``, ``pe_wl`` and ``pe_flat_factor``):
+#: the JAX package's, chosen by tools/pe_tune.py on a TPU v5e
 VERIFY_SLAB = 16
 WL_FACTOR = 3
 FLAT_FACTOR = 12

@@ -63,7 +63,7 @@ VERIFY_SLAB = 64
 CAND_SLAB = 32
 #: worklist slots per read in a chunk; spills take the host path
 WL_FACTOR = 4
-#: SE tier-1 worklist slots per read (the backend's ``WALTX_WL1`` default,
+#: SE tier-1 worklist slots per read (the backend's start for ``_wl1``,
 #: walt_tpu's: survivors average ~1.2 per read on its TPU v5e profile)
 WL1 = 1.5
 

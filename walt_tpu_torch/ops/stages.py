@@ -1,4 +1,4 @@
-"""Stage marks of the strand pass, and the CUDA timer that reads them.
+"""Stage marks of the strand pass, and the recorder that keeps them.
 
 Takes the place of walt_tpu's stage-truncation profiler (the ``stage_out``
 checksums in ``walt_tpu/ops/pipeline.py`` and ``map_strand_stage``, timed
@@ -29,21 +29,19 @@ both passes: ``fold`` (``se_fold.map_single_end_device``) or ``flat``
 (``pe_map.map_mate_device``).  With ``stages=None`` nothing is recorded:
 no event, no profiler range, no host synchronization.
 
-Recorders: :class:`StageLog` keeps the marks in order with their tensors
-(the tests hold them to walt_tpu's stage checksums);
-:class:`CudaStageTimer` records a CUDA event at each boundary and opens a
-``torch.profiler.record_function`` range per stage, so a profiled call
-gives each stage's device busy time and launches
-(:meth:`CudaStageTimer.device_split`).
+The recorder, :class:`StageLog`, keeps the marks in order with their
+tensors (the tests hold them to walt_tpu's stage checksums).  It records
+an eager step only: a graph replay passes no mark, so ``ops/graphs``
+refuses a recorder.  :func:`profiled` and :func:`union_us` read a
+``torch.profiler`` trace of whole calls.
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import json
 import os
-from collections import Counter, namedtuple
+from collections import namedtuple
 
 import torch
 
@@ -117,13 +115,6 @@ class StageLog:
         return [(m.table, m.name) for m in self.marks]
 
 
-def _put(out: dict, key, value) -> None:
-    if key in out:
-        raise RuntimeError(f"stages: {key} recorded twice; use one "
-                           f"recorder per device step")
-    out[key] = value
-
-
 def union_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -137,197 +128,6 @@ def union_us(intervals) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
-
-
-class CudaStageTimer(StageLog):
-    """Stream time per stage from CUDA events, and the ranges that give
-    device busy time and launches per stage under ``torch.profiler``.
-
-    At ``begin``, each mark and ``end`` it records a
-    ``torch.cuda.Event(enable_timing=True)`` on the device's current
-    stream; nothing waits for them.  Each stretch between two boundaries
-    runs inside its own ``record_function`` range (the range of a stage
-    ends at its mark; a pass's stretch after its last mark and the
-    stretches between passes have no stage), and each strand pass inside
-    one more range; a step stage's mark ends the timer's ranges.  One timer
-    records one device-step call.  It keeps no tensor of the marks, so it
-    holds no device memory.
-    """
-
-    def __init__(self, device=None):
-        super().__init__()
-        self.device = torch.device(
-            "cuda", torch.cuda.current_device()) if device is None \
-            else torch.device(device)
-        # distinct for the timers alive in one profiling window
-        self._prefix = f"waltx_stage.{id(self):x}."
-        self._bounds = []  # (Mark or ("begin"|"end", pass_no, table), event)
-        self._segments = {}  # range name -> (pass_no, table, stage or None)
-        self._pass_ranges = {}  # range name -> (pass_no, table)
-        self._seg = None  # (name, range, pass_no, table) of the open stretch
-        self._pass_range = None
-        self._n_seg = 0
-
-    def _event(self):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
-
-    def _open_segment(self, pass_no, table) -> None:
-        name = f"{self._prefix}s{self._n_seg}"
-        self._n_seg += 1
-        rf = torch.profiler.record_function(name)
-        rf.__enter__()
-        self._seg = (name, rf, pass_no, table)
-
-    def _close_segment(self, stage) -> None:
-        if self._seg is None:
-            return
-        name, rf, pass_no, table = self._seg
-        rf.__exit__(None, None, None)
-        self._segments[name] = (pass_no, table, stage)
-        self._seg = None
-
-    def begin(self, table: int) -> None:
-        super().begin(table)
-        pass_no = self._open[0]
-        self._close_segment(None)  # between passes: no stage
-        self._bounds.append((("begin", pass_no, table), self._event()))
-        name = f"{self._prefix}p{pass_no}"
-        rf = torch.profiler.record_function(name)
-        rf.__enter__()
-        self._pass_range = rf
-        self._pass_ranges[name] = (pass_no, table)
-        self._open_segment(pass_no, table)
-
-    def end(self) -> None:
-        pass_no, table = self._open or (None, None)
-        super().end()  # raises when no pass is open
-        self._bounds.append((("end", pass_no, table), self._event()))
-        self._close_segment(None)  # after the pass's last mark: no stage
-        self._pass_range.__exit__(None, None, None)
-        self._pass_range = None
-        self._open_segment(None, None)
-
-    def mark(self, name: str, **live) -> None:
-        if self._seg is None:
-            raise RuntimeError(f"stages: mark {name!r} before any strand "
-                               f"pass")
-        super().mark(name)  # without the tensors
-        m = self.marks[-1]
-        self._bounds.append((m, self._event()))
-        self._close_segment(name)
-        if m.pass_no is not None:
-            self._open_segment(m.pass_no, m.table)
-
-    def stream_ms(self) -> dict:
-        """{(table, stage): ms} from each mark's event back to the boundary
-        before it, and {(table, "strand"): ms} from each pass's ``begin``
-        to its ``end``.  Call after the device was synchronized once."""
-        out, start, prev = {}, {}, None
-        for what, ev in self._bounds:
-            if isinstance(what, Mark):
-                _put(out, (what.table, what.name), prev.elapsed_time(ev))
-            elif what[0] == "begin":
-                start[what[1]] = ev
-            else:
-                _put(out, (what[2], "strand"),
-                     start[what[1]].elapsed_time(ev))
-            prev = ev
-        return out
-
-    def device_split(self, events) -> dict:
-        """Device work of the recorded call, by the stage that launched it.
-
-        ``events``: the chrome-trace events of a ``torch.profiler`` run
-        (CPU and CUDA activities) around the call.  Each device event
-        (kernel, copy, fill) is matched to the host call that launched it
-        by the profiler's correlation id, and belongs to the range that
-        holds that call on the host timeline, not to the range its device
-        time overlaps (the device runs a kernel later than its launch).
-
-        Returns {(table, stage): dict(busy_ms, launches, names, dropped)}
-        for every mark, {(table, "strand"): ...} for every pass (all device
-        work its range launched), and {(None, None): ...} for device work
-        launched in this recorder's ranges outside any stage (after a
-        pass's last mark, or between passes); ``busy_ms`` is the union of
-        the device intervals, ``names`` a Counter of device event names,
-        ``dropped`` the host launch calls of the range whose device record
-        the trace lacks (the profiler lost it; the numbers are then short).
-        """
-        self._close_segment(None)  # the step's calls are over
-        segs, passes = [], []
-        for e in events:
-            if e.get("ph") != "X" or e.get("cat") != "user_annotation":
-                continue
-            span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-            if e["name"] in self._segments:
-                segs.append(span + (self._segments[e["name"]],))
-            elif e["name"] in self._pass_ranges:
-                passes.append(span + (self._pass_ranges[e["name"]],))
-        segs.sort(key=lambda s: s[:2])
-        passes.sort(key=lambda s: s[:2])
-        launched = {}
-        for e in events:
-            corr = e.get("args", {}).get("correlation")
-            if e.get("cat") in LAUNCH_CATS and corr is not None:
-                launched.setdefault(corr, (float(e["ts"]), e["name"]))
-        groups, recorded = {}, set()
-
-        def keys_at(ts):
-            seg = _holding(segs, ts)
-            if seg is None:
-                return []  # launched outside this recorder's ranges
-            pass_no, table, stage = seg
-            keys = [(None, None) if stage is None else (table, stage)]
-            pas = _holding(passes, ts)
-            return keys + ([] if pas is None else [(pas[1], "strand")])
-
-        for e in events:
-            corr = e.get("args", {}).get("correlation")
-            if e.get("cat") not in DEVICE_CATS or corr not in launched:
-                continue
-            recorded.add(corr)
-            span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-            for key in keys_at(launched[corr][0]):
-                groups.setdefault(key, dict(spans=[], names=Counter(),
-                                            dropped=0))
-                groups[key]["spans"].append(span)
-                groups[key]["names"][e["name"]] += 1
-        for corr, (ts, name) in launched.items():
-            if corr in recorded or not any(w in name for w in LAUNCH_WORDS):
-                continue
-            for key in keys_at(ts):
-                groups.setdefault(key, dict(spans=[], names=Counter(),
-                                            dropped=0))
-                groups[key]["dropped"] += 1
-        return {k: dict(busy_ms=union_us(g["spans"]) / 1e3,
-                        launches=len(g["spans"]), names=g["names"],
-                        dropped=g["dropped"])
-                for k, g in groups.items()}
-
-
-def _holding(spans, ts):
-    """The payload of the (start, end, payload) span that holds ``ts``
-    (``spans`` sorted and disjoint), or None."""
-    i = bisect.bisect_right(spans, (ts, float("inf"))) - 1
-    if i >= 0 and spans[i][0] <= ts <= spans[i][1]:
-        return spans[i][2]
-    return None
-
-
-def device_events(events) -> int:
-    """Device events (kernels, copies, fills) of a trace."""
-    return sum(1 for e in events if e.get("cat") in DEVICE_CATS)
-
-
-def unmatched_device_events(events) -> int:
-    """Device events of a trace whose launching host call the trace does
-    not hold (their stage cannot be known)."""
-    launched = {e.get("args", {}).get("correlation") for e in events
-                if e.get("cat") in LAUNCH_CATS}
-    return sum(1 for e in events if e.get("cat") in DEVICE_CATS
-               and e.get("args", {}).get("correlation") not in launched)
 
 
 def profiled(fn, warmup, trace_path: str):

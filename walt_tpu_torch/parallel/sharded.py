@@ -16,8 +16,7 @@ cared base: at tp=4 a human C->T table has about half its entries on the
 T range and almost none on the C range, and the heavy shard's owned pairs
 overflow its routed capacity, which sends a suffix of every chunk to the
 host.  Either split is bucket-granular, so the merges and the host decode
-are the same; ``bucket_bounds`` pins walt_tpu's ranges where a test holds
-a shard to walt_tpu's bit for bit.
+are the same.
 
 walt_tpu runs one ``shard_map`` program over a JAX mesh: one dispatch runs
 every shard on every chip at once.  Here a :class:`Mesh` is a (dp, tp)
@@ -30,9 +29,8 @@ row is its lane, so rows never share a graph or a pool): each tp shard's
 strand pass (with its ``segment_summaries`` for SE, both tables and the
 flat compaction for PE), then the row's merge or fold on its first
 device.  A replay gives up the interpreter lock once, where the eager pass
-handed it to the other rows' threads at each of its ~1,000 ops
-(``tools/thread_dispatch_torch.py`` measures the hand-over).  Within a row
-the tp shard steps run one after another, each on its own device (their
+handed it to the other rows' threads at each of its ~1,000 ops.  Within a
+row the tp shard steps run one after another, each on its own device (their
 launches are asynchronous, so shards on different cards overlap).  A
 device may appear more than once in the grid: a virtual mesh puts several
 shards on one card, as walt_tpu's tests put them on virtual CPU devices,
@@ -204,39 +202,27 @@ def balanced_bounds(counter: np.ndarray, n_shards: int):
     return kb, counter[kb].astype(np.int64)
 
 
-def _shard_bounds(counter: np.ndarray, n_shards: int, where: str,
-                  bucket_bounds=None):
-    """(bucket bounds, entry bounds) of a table's tp split:
-    :func:`balanced_bounds`, or ``bucket_bounds`` (T + 1 bucket indices
-    from 0 to nb, strictly increasing) when given; raises when a shard
-    would overflow the pipeline's int32 entry indices."""
-    if bucket_bounds is None:
-        kb, bounds = balanced_bounds(counter, n_shards)
-    else:
-        kb = np.asarray(bucket_bounds, dtype=np.int64)
-        nb = counter.shape[0] - 1
-        if (kb.shape != (n_shards + 1,) or kb[0] != 0 or kb[-1] != nb
-                or (np.diff(kb) <= 0).any()):
-            raise ValueError(f"{where}: bucket bounds {kb.tolist()} do not "
-                             f"split {nb} buckets into {n_shards} shards")
-        bounds = counter[kb].astype(np.int64)
+def _shard_bounds(counter: np.ndarray, n_shards: int, where: str):
+    """(bucket bounds, entry bounds) of a table's tp split
+    (:func:`balanced_bounds`); raises when a shard would overflow the
+    pipeline's int32 entry indices."""
+    kb, bounds = balanced_bounds(counter, n_shards)
     pipeline.check_entry_limit(int(np.diff(bounds).max()), where)
     return kb, bounds
 
 
 def shard_device_table(dt: DeviceTable, n_shards: int,
-                       accel: str = "uniq", free_input: bool = False,
-                       bucket_bounds=None) -> ShardedTables:
+                       accel: str = "uniq", free_input: bool = False
+                       ) -> ShardedTables:
     """Split one host DeviceTable into ``n_shards`` bucket-range shards.
 
     walt_tpu's padded host layout: the per-entry arrays padded to the
-    largest shard, the per-bucket arrays to the shard of most buckets.
-    ``bucket_bounds``: as for :func:`shard_and_place` (walt_tpu's equal
-    ranges, :func:`bucket_range_bounds`, give walt_tpu's tables bit for
-    bit).  ``accel``: "uniq" (word-0 run index + the stored key words) or
-    "key16" (16-bit prefix keys and no uniq runs; needs word 0 in
-    ``dt.key_words``).  ``free_input`` drops ``dt.key_words`` once the
-    key16 prefixes are derived from it.
+    largest shard, the per-bucket arrays to the shard of most buckets
+    (bit for bit walt_tpu's tables when the split is walt_tpu's equal
+    ranges, :func:`bucket_range_bounds`).  ``accel``: "uniq" (word-0 run
+    index + the stored key words) or "key16" (16-bit prefix keys and no
+    uniq runs; needs word 0 in ``dt.key_words``).  ``free_input`` drops
+    ``dt.key_words`` once the key16 prefixes are derived from it.
     """
     if dt.key_words is None:
         raise ValueError(
@@ -246,8 +232,7 @@ def shard_device_table(dt: DeviceTable, n_shards: int,
     if accel not in ("uniq", "key16"):
         raise ValueError(f"unknown accel {accel!r}")
     kb, bounds = _shard_bounds(dt.counter, n_shards,
-                               f"shard_device_table(tp={n_shards})",
-                               bucket_bounds)
+                               f"shard_device_table(tp={n_shards})")
     max_len = max(1, int(np.diff(bounds).max()))
     max_nbl = int(np.diff(kb).max())
 
@@ -309,18 +294,16 @@ def _at_least_one(t: torch.Tensor) -> torch.Tensor:
 
 
 def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
-                    accel: str = "uniq", n_key_words: int = 0,
-                    bucket_bounds=None):
+                    accel: str = "uniq", n_key_words: int = 0):
     """Shard one prepared table over the mesh's tp axis and place it.
 
-    Shard t holds buckets [k_t, k_{t+1}) of ``bucket_bounds`` (T + 1
-    bucket indices; default :func:`balanced_bounds` of the table's
-    counter).  The same bucket-range layout as :func:`shard_device_table`,
-    but each shard is exact-size and its accelerating structure is built
-    on its own device from its own entries (``ops/device_index``
-    builders): a bucket
-    lives on one shard and word-0 runs break at every bucket start, so a
-    shard's uniq runs are walt_tpu's global runs rebased to the shard.
+    Shard t holds buckets [k_t, k_{t+1}) of :func:`balanced_bounds` of
+    the table's counter.  The same bucket-range layout as
+    :func:`shard_device_table`, but each shard is exact-size and its
+    accelerating structure is built on its own device from its own entries
+    (``ops/device_index`` builders): a bucket lives on one shard and
+    word-0 runs break at every bucket start, so a shard's uniq runs are
+    walt_tpu's global runs rebased to the shard.
     ``accel``: "uniq" or "key16" (see :func:`shard_device_table`);
     ``n_key_words``: packed u32 key words stored beside the uniq runs (3
     for the ``exact_b`` path; the fast path reads none).  ``dt.key_words``
@@ -337,8 +320,7 @@ def shard_and_place(dt: DeviceTable, mesh: Mesh, pattern: SeedPattern,
     if accel == "key16" and n_key_words:
         raise ValueError("key16 shards store no u32 key words")
     tp = mesh.shape["tp"]
-    kb, bounds = _shard_bounds(dt.counter, tp, f"shard_and_place(tp={tp})",
-                               bucket_bounds)
+    kb, bounds = _shard_bounds(dt.counter, tp, f"shard_and_place(tp={tp})")
     genome = {}  # device -> (pseq, start_index)
     placed = {}  # (shard, device) -> shard dict
     uniq_bits = 0
